@@ -1,0 +1,397 @@
+"""Device-resident relations: capacity-padded columns + selection masks.
+
+Port of datafusion_tpu/data/device.py to torch tensors. The layout is kept
+as it is so that operator outputs compare slot by slot with the reference:
+
+* a DeviceRelation holds one tensor per column, all padded to ONE
+  power-of-two `capacity` (bucket_capacity), plus a bool selection mask
+  `sel` marking live rows. Filters only flip mask bits.
+* a DeviceColumn is (data, validity, dtype, dictionary, bounds, lengths,
+  elem_valid, meta):
+    - scalar columns: data [capacity], optional bool validity [capacity]
+      (padded/NULL slots hold 0 in data);
+    - string columns: data are int32 codes into a host-side SORTED
+      Dictionary (order-preserving, so comparisons/sorts work on codes);
+    - list columns: data [capacity, width], int32 `lengths`, bool
+      `elem_valid` [capacity, width];
+    - `bounds` is optional static (lo, hi) interval metadata over the device
+      representation (always containing 0, the padding value); the dense
+      aggregation kernel path uses it to prove factors fit int32.
+
+Tensors live on one torch device. Entry points default to the CUDA card
+(`resolve_device`); callers that want the CPU pass it explicitly.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..common import types as T
+from ..common.errors import PlanError
+from ..common.schema import Schema
+from .column import Dictionary, HostColumn
+from .table import Table
+
+_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+_TORCH_DTYPES = {
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+}
+
+
+def torch_dtype(dt) -> torch.dtype:
+    """torch dtype of a numpy dtype (or of a logical type's device
+    representation)."""
+    if isinstance(dt, T.DataType):
+        dt = dt.np_dtype()
+    try:
+        return _TORCH_DTYPES[np.dtype(dt)]
+    except KeyError:
+        raise PlanError(f"no device dtype for {dt}") from None
+
+
+def is_integer(t: torch.Tensor) -> bool:
+    """Integer (not bool, not float) tensor."""
+    return not t.dtype.is_floating_point and not t.dtype.is_complex \
+        and t.dtype is not torch.bool
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when it is None; raises when this process
+    has no card (pass a device such as "cpu" explicitly to run there)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "datafusion_tpu_torch runs on a CUDA device by default and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
+            "on the CPU")
+    return torch.device("cuda")
+
+
+def bucket_capacity(n: int) -> int:
+    """Smallest power of two >= n, with a floor of 128."""
+    n = max(int(n), 1)
+    return max(1 << (n - 1).bit_length(), 128)
+
+
+class DeviceColumn:
+    """One column on device; see module docstring for the layout."""
+
+    __slots__ = ("data", "validity", "dtype", "dictionary", "bounds",
+                 "lengths", "elem_valid", "meta")
+
+    def __init__(self, data, validity=None, dtype: Optional[T.DataType] = None,
+                 dictionary: Optional[Dictionary] = None,
+                 bounds: Optional[Tuple[int, int]] = None,
+                 lengths=None, elem_valid=None, meta=None):
+        self.data = data
+        self.validity = validity
+        self.dtype = dtype
+        self.dictionary = dictionary
+        self.bounds = bounds
+        self.lengths = lengths
+        self.elem_valid = elem_valid
+        self.meta = meta
+
+    def sort_bounds(self) -> Optional[Tuple[int, int]]:
+        """(lo, hi) covering the column's whole physical device array (dead
+        slots included), for packing this column as a fixed-width field of a
+        single int64 sort key: integer interval bounds, the code range of
+        dictionary-encoded strings, (0, 1) for bools. None when unbounded."""
+        if self.data.ndim != 1:
+            return None
+        if self.dictionary is not None:
+            return (0, max(int(self.dictionary.size) - 1, 0))
+        if self.data.dtype is torch.bool:
+            return (0, 1)
+        if self.bounds is not None and is_integer(self.data):
+            return (int(self.bounds[0]), int(self.bounds[1]))
+        return None
+
+    # ---- shape -----------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        return int(self.data.shape[0])
+
+    # ---- metadata ----------------------------------------------------------
+    def fits_i32(self) -> bool:
+        """True when every value (including the 0 padding) provably fits
+        int32 -- from the device dtype or the static bounds interval."""
+        if self.data.dtype in (torch.bool, torch.int8, torch.int16,
+                               torch.int32, torch.uint8):
+            return True
+        if self.bounds is None:
+            return False
+        lo, hi = self.bounds
+        return lo >= _I32_MIN and hi <= _I32_MAX
+
+    def __repr__(self) -> str:
+        shape = tuple(self.data.shape)
+        return (f"DeviceColumn({self.dtype!r}, shape={shape}, "
+                f"nullable={self.validity is not None})")
+
+
+class DeviceRelation:
+    """A set of equally-padded DeviceColumns + the live-row selection mask."""
+
+    __slots__ = ("schema", "columns", "sel")
+
+    def __init__(self, schema: Schema, columns: Sequence[DeviceColumn], sel):
+        self.schema = schema
+        self.columns = tuple(columns)
+        self.sel = sel
+
+    @property
+    def capacity(self) -> int:
+        return int(self.sel.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.sel.device
+
+    def num_rows(self):
+        """Live row count (0-d int64 tensor)."""
+        return self.sel.sum(dtype=torch.int64)
+
+    def with_sel(self, sel) -> "DeviceRelation":
+        return DeviceRelation(self.schema, self.columns, sel)
+
+    def column(self, name: str) -> DeviceColumn:
+        i = self.schema.find(name)
+        if i is None:
+            raise PlanError(
+                f"column {name!r} not found; available: "
+                f"{[f.qualified_name for f in self.schema.fields]}")
+        return self.columns[i]
+
+    def __repr__(self) -> str:
+        return f"DeviceRelation[cap={self.capacity}, {self.schema!r}]"
+
+
+# ---------------------------------------------------------------------------
+# host <-> device conversion
+# ---------------------------------------------------------------------------
+
+
+def table_bounds(table: Table) -> List[Optional[Tuple[int, int]]]:
+    """Per-column (lo, hi) device-representation bounds for integer-like
+    columns (always containing 0, the padding value); None elsewhere."""
+    out: List[Optional[Tuple[int, int]]] = []
+    for f, c in zip(table.schema.fields, table.columns):
+        t = f.dtype
+        if not (t.is_integer or t.is_decimal or t.is_temporal):
+            out.append(None)
+            continue
+        data = np.asarray(c.data)
+        if data.dtype == object or data.ndim != 1:
+            out.append(None)
+            continue
+        live = data if c.validity is None else data[c.validity]
+        if live.size == 0:
+            out.append((0, 0))
+            continue
+        out.append((min(int(live.min()), 0), max(int(live.max()), 0)))
+    return out
+
+
+def _list_device_arrays(rows: np.ndarray, elem: T.DataType, cap: int):
+    """Pad an object array of per-row lists to [cap, width] + lengths +
+    elem_valid (one nesting level)."""
+    if elem.is_list:
+        raise NotImplementedError(
+            "nested list columns are not ported yet (ROADMAP queue 1, item 9 "
+            "'Function and nested-type breadth')")
+    n = len(rows)
+    width = max([1] + [len(r) for r in rows if r is not None])
+    data = np.zeros((cap, width), dtype=elem.np_dtype())
+    ev = np.zeros((cap, width), dtype=bool)
+    lengths = np.zeros(cap, dtype=np.int32)
+    for i in range(n):
+        r = rows[i]
+        if r is None:
+            continue
+        lengths[i] = len(r)
+        for j, x in enumerate(r):
+            if x is not None:
+                data[i, j] = x
+                ev[i, j] = True
+    return data, lengths, ev
+
+
+def _tensor(a: Optional[np.ndarray], device: torch.device):
+    if a is None:
+        return None
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch would alias a read-only buffer
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def to_device(table: Table, capacity: Optional[int] = None, device=None,
+              row_range: Optional[Tuple[int, int]] = None,
+              bounds: Optional[List[Optional[Tuple[int, int]]]] = None
+              ) -> DeviceRelation:
+    """Upload a host Table as a capacity-padded DeviceRelation on `device`
+    (default: the CUDA card).
+
+    row_range=(lo, hi) uploads only that slice; `bounds` overrides the
+    computed per-column bounds. NULL slots are normalized to 0 in data (the
+    padding value), so bounds always contain 0."""
+    device = resolve_device(device)
+    lo, hi = row_range if row_range is not None else (0, table.num_rows)
+    n = hi - lo
+    cap = capacity if capacity is not None else bucket_capacity(max(n, 1))
+    if n > cap:
+        raise PlanError(f"row range {n} exceeds capacity {cap}")
+    if bounds is None:
+        bounds = table_bounds(table)
+
+    cols: List[DeviceColumn] = []
+    for f, c, b in zip(table.schema.fields, table.columns, bounds):
+        t = f.dtype
+        validity = None
+        if c.validity is not None:
+            validity = np.zeros(cap, dtype=bool)
+            validity[:n] = c.validity[lo:hi]
+        if t.is_list:
+            data, lengths, ev = _list_device_arrays(c.data[lo:hi], t.elem, cap)
+            cols.append(DeviceColumn(_tensor(data, device),
+                                     _tensor(validity, device), t,
+                                     c.dictionary, None,
+                                     _tensor(lengths, device),
+                                     _tensor(ev, device)))
+            continue
+        data = np.zeros(cap, dtype=t.np_dtype())
+        chunk = np.asarray(c.data[lo:hi])
+        if chunk.dtype != data.dtype:
+            chunk = chunk.astype(data.dtype)
+        if c.validity is not None:
+            chunk = np.where(c.validity[lo:hi], chunk, data.dtype.type(0))
+        data[:n] = chunk
+        cols.append(DeviceColumn(_tensor(data, device),
+                                 _tensor(validity, device), t, c.dictionary, b))
+
+    sel = np.zeros(cap, dtype=bool)
+    sel[:n] = True
+    return DeviceRelation(table.schema, tuple(cols), _tensor(sel, device))
+
+
+def _numpy(t) -> Optional[np.ndarray]:
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def to_host(rel: DeviceRelation) -> Table:
+    """Download a DeviceRelation as a host Table holding only the LIVE rows
+    (in capacity order)."""
+    sel = _numpy(rel.sel)
+    cols: List[HostColumn] = []
+    for f, c in zip(rel.schema.fields, rel.columns):
+        if c.meta is not None:
+            raise NotImplementedError(
+                f"column metadata {c.meta!r} is not ported yet")
+        data = _numpy(c.data)
+        v = None if c.validity is None else _numpy(c.validity)[sel]
+        if f.dtype.is_list:
+            if c.lengths is not None:
+                lengths = _numpy(c.lengths)
+            else:
+                lengths = np.full(data.shape[0], data.shape[1], dtype=np.int32)
+            ev = (_numpy(c.elem_valid) if c.elem_valid is not None else
+                  np.arange(data.shape[1])[None, :] < lengths[:, None])
+            data2, lengths2, ev2 = data[sel], lengths[sel], ev[sel]
+            rows = np.empty(len(data2), dtype=object)
+            for i in range(len(data2)):
+                rows[i] = [data2[i, j].item() if ev2[i, j] else None
+                           for j in range(int(lengths2[i]))]
+            if v is not None:
+                for i in np.nonzero(~v)[0]:
+                    rows[i] = None
+            cols.append(HostColumn(f.dtype, rows, v, c.dictionary))
+            continue
+        cols.append(HostColumn(f.dtype, data[sel], v, c.dictionary))
+    return Table(rel.schema, cols)
+
+
+def empty_relation(schema: Schema, device=None) -> DeviceRelation:
+    """An all-dead relation of minimal capacity (every column NULL-capable,
+    so PlaceholderRow semantics read NULL from any column)."""
+    device = resolve_device(device)
+    cap = bucket_capacity(1)
+    validity = torch.zeros(cap, dtype=torch.bool, device=device)
+    cols: List[DeviceColumn] = []
+    for f in schema.fields:
+        t = f.dtype
+        d = Dictionary(np.array([], dtype=object)) if t.is_string else None
+        if t.is_list:
+            et = torch_dtype(t.elem)
+            cols.append(DeviceColumn(
+                torch.zeros((cap, 1), dtype=et, device=device), validity, t, d,
+                None, torch.zeros(cap, dtype=torch.int32, device=device),
+                torch.zeros((cap, 1), dtype=torch.bool, device=device)))
+        else:
+            cols.append(DeviceColumn(
+                torch.zeros(cap, dtype=torch_dtype(t), device=device),
+                validity, t, d, (0, 0) if _boundable(t) else None))
+    sel = torch.zeros(cap, dtype=torch.bool, device=device)
+    return DeviceRelation(schema, tuple(cols), sel)
+
+
+def _boundable(t: T.DataType) -> bool:
+    return t.is_integer or t.is_decimal or t.is_temporal
+
+
+# ---------------------------------------------------------------------------
+# construction from numpy leaves (differential tests, data handed across)
+# ---------------------------------------------------------------------------
+
+
+def relation_from_numpy(schema: Schema, columns, sel: np.ndarray,
+                        device=None) -> DeviceRelation:
+    """A DeviceRelation from numpy leaves. `columns` holds one tuple
+    (data, validity_or_None, dictionary_values_or_None, bounds_or_None) per
+    schema field; this is how a reference relation's leaves are fed to the
+    port's operators."""
+    device = resolve_device(device)
+    if len(columns) != len(schema.fields):
+        raise PlanError(f"{len(columns)} columns for a "
+                        f"{len(schema.fields)}-field schema")
+    cols = []
+    for f, (data, validity, dict_values, bounds) in zip(schema.fields, columns):
+        d = None if dict_values is None else Dictionary(dict_values)
+        b = None if bounds is None else (int(bounds[0]), int(bounds[1]))
+        cols.append(DeviceColumn(_tensor(np.asarray(data), device),
+                                 _tensor(None if validity is None
+                                         else np.asarray(validity, bool),
+                                         device),
+                                 f.dtype, d, b))
+    return DeviceRelation(schema, cols, _tensor(np.asarray(sel, bool), device))
+
+
+def table_from_numpy(fields, data, validity=None, dictionaries=None) -> Table:
+    """A host Table from numpy columns. `fields` are (name, DataType) pairs
+    or Fields; `validity` and `dictionaries` are optional per-column lists
+    (None entries allowed) of bool masks and dictionary values."""
+    from ..common.schema import Field
+
+    n = len(data)
+    validity = list(validity) if validity is not None else [None] * n
+    dictionaries = (list(dictionaries) if dictionaries is not None
+                    else [None] * n)
+    fs, cols = [], []
+    for f, d, v, dv in zip(fields, data, validity, dictionaries):
+        if not isinstance(f, Field):
+            f = Field(f[0], f[1], nullable=v is not None)
+        fs.append(f)
+        cols.append(HostColumn(f.dtype, np.asarray(d), v,
+                               None if dv is None else Dictionary(dv)))
+    return Table(Schema(fs), cols)

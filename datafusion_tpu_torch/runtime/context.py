@@ -1,0 +1,53 @@
+"""Execution runtime context.
+
+Port of datafusion_tpu/runtime/context.py (reference analog: TaskContext +
+RuntimeEnv, datafusion/execution/src/task.rs:52): per-query config, the
+torch device, metrics registry and memory accounting passed to every
+operator's execute()."""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Optional
+
+
+@dataclasses.dataclass
+class ExecMetrics:
+    """Per-operator metrics (analog of BaselineMetrics,
+    physical-expr-common/src/metrics/baseline.rs:53)."""
+
+    output_rows: int = 0
+    elapsed_seconds: float = 0.0
+
+    def record(self, rows: int, seconds: float):
+        self.output_rows += int(rows)
+        self.elapsed_seconds += seconds
+
+
+class ExecContext:
+    def __init__(self, config: Optional[Dict[str, Any]] = None, device=None):
+        from .memory import GreedyMemoryPool, MemoryPool
+
+        self.config = dict(config or {})
+        self.device = device
+        self.metrics: Dict[str, ExecMetrics] = {}
+        limit = (self.config.get("memory_limit_bytes")
+                 or self.config.get("execution.memory_limit_bytes"))
+        self.memory_pool = GreedyMemoryPool(int(limit)) if limit else MemoryPool()
+        # cooperative cancellation, checked between operator dispatches
+        self.cancel_event = self.config.get("_cancel_event")
+        timeout = self.config.get("execution.timeout_seconds")
+        self.deadline = (time.monotonic() + float(timeout)) if timeout else None
+
+    def check_cancelled(self):
+        from ..common.errors import QueryCancelled
+
+        if self.cancel_event is not None and self.cancel_event.is_set():
+            raise QueryCancelled("query cancelled by interrupt()")
+        if self.deadline is not None and time.monotonic() > self.deadline:
+            raise QueryCancelled("execution.timeout_seconds exceeded")
+
+    def metric(self, name: str) -> ExecMetrics:
+        if name not in self.metrics:
+            self.metrics[name] = ExecMetrics()
+        return self.metrics[name]

@@ -7,19 +7,23 @@ Run from the repository root on a machine with one CUDA card and nvcc. In
 order, it:
   1. prints the card's name and power limit (nvidia-smi) and the torch device;
   2. builds every hand-written kernel from csrc/ (one nvcc per source, all in
-     parallel) and prints each one's -Xptxas -v report;
+     parallel), prints each one's -Xptxas -v report, and fails if a kernel
+     spills registers or (cuobjdump -sass) holds a shared-memory atomic;
   3. holds each kernel against its plain PyTorch version on the card, bit for
      bit (tolerance 0: integer sums are exact), at the main path's shapes and
-     at edge cases;
+     at edge cases, and fails unless every route of the kernel was taken;
   4. generates TPC-H at --sf and runs Q1 and Q6 through
      SessionContext().sql(...).collect() -- the main path -- checks the answers
      against the pandas oracle with frames_diff, and checks that each query
      launched the kernel (launch counts are reset just before each query and
      read just after);
   5. holds each kernel against its plain version again, bit for bit, on the
-     inputs the main path gave it, and times it there with CUDA events,
-     beside its plain version, one PyTorch library call computing the same
-     function, and its bound (bytes the data needs / the card's memory
+     inputs the main path gave it, and times it there as cold-L2 device time
+     (CUDA events around the call alone, after a 1 GiB write that evicts the
+     L2 and a 128 MB read that leaves it clean; median of --iters;
+     cross-checked with torch.profiler), beside its
+     first design, its plain version, one PyTorch library call computing the
+     same function, and its bound (bytes the data needs / the card's memory
      rate), then times warm Q1 and Q6 end to end;
   6. prints a {"kernels": [...]} line, the card's name and power limit, and,
      last, {"ok": true, "device": {...}}.
@@ -29,7 +33,10 @@ Without a CUDA device it exits with code 2 at once.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -47,12 +54,20 @@ from datafusion_tpu_torch.ops import dense_agg as DA
 
 # H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
+# before each timed call: a write that evicts the L2 (50 MB on an H100) and
+# keeps the card busy while the host enqueues the call, then a read that
+# leaves the L2 holding clean lines of another buffer
+L2_FLUSH_WRITE_BYTES = 1 << 30
+L2_FLUSH_READ_BYTES = 128 << 20
 KERNEL = {
     "name": "dense_groupby_sums",
     "route": "cuda",
     "source": "datafusion_tpu_torch/csrc/dense_groupby_sums.cu",
     "replaces": "datafusion_tpu/ops/pallas_agg.py:153",
 }
+# the kernel's first design (shared-memory atomics), timed beside it by the
+# same method on the same inputs; the engine never calls it
+BASELINE = "baseline/dense_groupby_sums_shared_atomics.cu"
 
 
 def check(ok: bool, what: str) -> None:
@@ -71,9 +86,44 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of one call of fn over `iters` back-to-back calls,
-    after one warm-up call (CUDA events; host enqueue overlaps)."""
+class L2Flush:
+    """Leaves the L2 cold and clean: a write of L2_FLUSH_WRITE_BYTES evicts
+    every input (and, at ~0.35 ms, outlasts the host's enqueue of the timed
+    call), then a read of L2_FLUSH_READ_BYTES writes the flush's dirty lines
+    back, so the timed call pays for its own bytes only."""
+
+    def __init__(self, dev):
+        self.write = torch.empty(L2_FLUSH_WRITE_BYTES, dtype=torch.uint8, device=dev)
+        self.read = torch.zeros(L2_FLUSH_READ_BYTES // 8, dtype=torch.int64, device=dev)
+
+    def __call__(self) -> None:
+        self.write.zero_()
+        self.read.sum()
+
+
+def cold_ms(fn, iters: int, flush: L2Flush) -> float:
+    """Median device time of one call of fn with the L2 cache cold: before
+    each call, `flush()`; one pair of CUDA events brackets fn alone. One
+    warm-up call first."""
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def warm_ms(fn, iters: int) -> float:
+    """Mean time of one call of fn over `iters` back-to-back calls between
+    one pair of events: the L2 stays warm and the host's enqueue rate can
+    set the pace. Kept only to show how far it is from cold_ms."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -86,6 +136,27 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_kernel_ms(fn, iters: int, flush: L2Flush, name: str) -> float:
+    """Mean self device time of the kernels whose name contains `name`, over
+    `iters` calls of fn each after an L2 flush, read from torch.profiler:
+    the cross-check of cold_ms without the events' own resolution."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    check(sum(e.count for e in hits) == iters,
+          f"profiler saw {sum(e.count for e in hits)} '{name}' kernels in "
+          f"{iters} calls")
+    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+
+
 # ---------------------------------------------------------------------------
 # 3. kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -96,37 +167,70 @@ def _rand(gen, lo: int, hi: int, n: int, dtype, dev):
 
 
 def kernel_cases(dev):
-    """(name, seg, mask, pairs, G) inputs for the bit-exact comparison."""
+    """(name, seg, mask, pairs, G) inputs for the bit-exact comparison: the
+    main path's shapes, every route and register shape at its boundaries,
+    int32/int64 mixes on each route, misaligned views, ragged and tiny N."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    n = 1 << 23
+    i64, i32 = torch.int64, torch.int32
+    big_n = 1 << 23
 
     def seg_mask(n, G, live=0.9):
-        seg = _rand(gen, 0, G + 1, n, torch.int32, dev)  # id G is dropped
+        seg = _rand(gen, -1, G + 1, n, i32, dev)  # ids -1 and G are dropped
         mask = torch.rand(n, generator=gen, device=dev) < live
         return seg, mask
 
-    i64 = torch.int64
-    i32 = torch.int32
-    # Q1's shape: 6 groups, 7 pairs of int64 decimal-like factors, one with b
-    seg, mask = seg_mask(n, 6)
-    price = _rand(gen, 0, 10_500_000, n, i64, dev)
-    qty = _rand(gen, 100, 5_001, n, i64, dev)
-    disc = _rand(gen, 0, 11, n, i64, dev)
-    disc_price = _rand(gen, 0, 1_050_000_000, n, i64, dev)
-    tax = _rand(gen, 100, 109, n, i64, dev)
+    def factors(n, count, with_b=True):
+        """count pairs alternating int64 / int32, wide values of both signs,
+        every other one with a b of the other type"""
+        out = []
+        for k in range(count):
+            ta, tb = (i64, i32) if k % 2 == 0 else (i32, i64)
+            a = _rand(gen, -(2 ** 31), 2 ** 31 - 1, n, ta, dev)
+            b = (_rand(gen, -100_000, 100_000, n, tb, dev)
+                 if with_b and k % 2 == 1 else None)
+            out.append((a, b))
+        return out
+
+    # Q1's shape: 6 groups, 7 pairs of int64 decimal-like factors (two of
+    # them repeated, as sum and avg of one column repeat them), one with b
+    seg, mask = seg_mask(big_n, 6)
+    price = _rand(gen, 0, 10_500_000, big_n, i64, dev)
+    qty = _rand(gen, 100, 5_001, big_n, i64, dev)
+    disc = _rand(gen, 0, 11, big_n, i64, dev)
+    disc_price = _rand(gen, 0, 1_050_000_000, big_n, i64, dev)
+    tax = _rand(gen, 100, 109, big_n, i64, dev)
     q1 = [(qty, None), (price, None), (disc_price, None), (disc_price, tax),
           (qty, None), (price, None), (disc, None)]
     yield "q1", seg, mask, q1, 6
-    # Q6's shape: one group, one pair
-    seg, mask = seg_mask(n, 1, live=0.02)
-    yield "q6", seg, mask, [(price, disc)], 1
-    # a ragged N with mixed int32 / int64 factors, negative values included
-    seg, mask = seg_mask(3000, 6)
-    a = _rand(gen, -10_000_000, 10_000_000, 3000, i32, dev)
-    b = _rand(gen, 0, 10_000, 3000, i64, dev)
-    c = _rand(gen, -(2 ** 31), 2 ** 31 - 1, 3000, i32, dev)
-    yield "ragged", seg, mask, [(a, b), (c, None), (c, c)], 6
+    # Q6's shape: one group, one pair, 2% live
+    seg6, mask6 = seg_mask(big_n, 1, live=0.02)
+    yield "q6", seg6, mask6, [(price, disc)], 1
+    # a ragged N with the 2^23 columns plus 3 rows
+    n = big_n + 3
+    seg, mask = seg_mask(n, 6)
+    yield "n_2p23_plus_3", seg, mask, factors(n, 3), 6
+    # tiny and ragged N, int32 / int64 mixed
+    for n in (1, 5, 3000):
+        seg, mask = seg_mask(n, 6)
+        yield f"n_{n}", seg, mask, factors(n, 3), 6
+    # register shapes at their caps, and one past them
+    seg, mask = seg_mask(1 << 20, 8)
+    yield "g8_p8_cap", seg, mask, factors(1 << 20, 8), 8
+    seg, mask = seg_mask(1 << 20, 9)
+    yield "g9_p8_over_cap", seg, mask, factors(1 << 20, 8), 9
+    seg, mask = seg_mask(1 << 20, 8)
+    yield "g8_p9_over_cap", seg, mask, factors(1 << 20, 9), 8
+    seg, mask = seg_mask(1 << 20, 1)
+    yield "g1_p16", seg, mask, factors(1 << 20, 16), 1
+    yield "g1_p0", seg, mask, [], 1
+    seg, mask = seg_mask(1 << 20, 2)
+    yield "g2_p16_shared", seg, mask, factors(1 << 20, 16), 2
+    # every register-route instantiation (G_MAX, exact distinct pairs)
+    for g_max, n_pairs in DA.REGISTER_SHAPES:
+        n = 40_003
+        seg, mask = seg_mask(n, g_max)
+        yield f"shape_g{g_max}_p{n_pairs}", seg, mask, factors(n, n_pairs), g_max
     # sums far beyond 2^32 (the TPU kernel's carry case)
     yield ("carry", torch.zeros(2048, dtype=i32, device=dev),
            torch.ones(2048, dtype=torch.bool, device=dev),
@@ -136,20 +240,41 @@ def kernel_cases(dev):
     big = torch.full((4096,), 2 ** 62 + 12345, dtype=i64, device=dev)
     yield ("wrap", torch.zeros(4096, dtype=i32, device=dev),
            torch.ones(4096, dtype=torch.bool, device=dev), [(big, big)], 1)
-    # an all-dead mask, and a count-only call
-    seg, _ = seg_mask(1 << 20, 6)
+    # all-dead masks on each route, and a count-only call
     dead = torch.zeros(1 << 20, dtype=torch.bool, device=dev)
-    yield "all_dead", seg, dead, [(price[:1 << 20].contiguous(), None)], 6
+    for G in (6, 1000, 16384):
+        seg, _ = seg_mask(1 << 20, G)
+        yield f"all_dead_g{G}", seg, dead, factors(1 << 20, 1), G
     seg, mask = seg_mask(1 << 20, 6)
     yield "count_only", seg, mask, [], 6
-    # the largest G the dense path admits: the global-atomics route
+    # the shared route: mid-size G, at its last G, and the first global G
+    seg, mask = seg_mask(1 << 20, 1000)
+    yield "g1000_shared", seg, mask, factors(1 << 20, 2), 1000
+    shared_last = DA.SHARED_BYTES_MAX // (DA.SHARED_MIN_WARPS * 2 * 8)
+    for G in (shared_last, shared_last + 1):
+        seg, mask = seg_mask(1 << 20, G)
+        yield f"g{G}_p1", seg, mask, factors(1 << 20, 1), G
+    # the largest G the dense path admits: the global route
     seg, mask = seg_mask(1 << 20, 16384)
-    yield ("g16384", seg, mask, [(price[:1 << 20].contiguous(),
-                                  tax[:1 << 20].contiguous())], 16384)
+    yield "g16384", seg, mask, factors(1 << 20, 2), 16384
+    # views at an offset: all columns sliced alike (the vector loop starts 3
+    # rows in), and only some of them (every row takes the scalar loop)
+    for G in (6, 1000, 16384):
+        n = (1 << 20) + 1
+        seg, mask = seg_mask(n, G)
+        pairs = factors(n, 3)
+        yield (f"views_1_g{G}", seg[1:], mask[1:],
+               [(a[1:], None if b is None else b[1:]) for a, b in pairs], G)
+        yield f"views_mask_only_g{G}", seg[:-1], mask[1:], [
+            (a[:-1], None if b is None else b[:-1]) for a, b in pairs], G
 
 
 def compare_kernel(dev) -> float:
+    """Every case twice through the kernel and once through the plain
+    version, bit for bit; fails unless every route and every register shape
+    was taken."""
     worst = 0
+    taken = set()
     for name, seg, mask, pairs, G in kernel_cases(dev):
         got = DA.dense_groupby_sums(seg, mask, pairs, G)
         again = DA.dense_groupby_sums(seg, mask, pairs, G)
@@ -163,9 +288,19 @@ def compare_kernel(dev) -> float:
             check(torch.equal(g, w), f"{name}: kernel {part} differ from the "
                                      f"plain version (max abs err {err})")
             check(torch.equal(g, a), f"{name}: kernel {part} differ between runs")
+        unique, _ = DA.distinct_pairs(pairs)
+        plan = DA.card_plan(seg, G, len(unique))
+        taken.add((plan.route, plan.variant))
+        head, tail = DA.vector_span(
+            seg.shape[0], seg.data_ptr(), mask.data_ptr(),
+            [(t.data_ptr(), t.element_size()) for p in unique for t in p
+             if t is not None])
         emit({"kernel_check": name, "n": int(seg.shape[0]), "G": G,
-              "pairs": len(pairs), "route": DA.kernel_route(G, len(pairs)),
-              "bit_exact": True})
+              "pairs": len(pairs), "distinct_pairs": len(unique),
+              **plan._asdict(), "vector_rows": [head, tail], "bit_exact": True})
+    want = {("registers", v) for v in range(len(DA.REGISTER_SHAPES))}
+    want |= {("shared", -1), ("global", -1)}
+    check(taken == want, f"routes taken {sorted(taken)}, want {sorted(want)}")
     return float(worst)
 
 
@@ -234,16 +369,86 @@ def run_main_path(ctx, pdt, sf: float):
 # ---------------------------------------------------------------------------
 
 
-def kernel_timing(call, iters: int) -> dict:
+def build_report(source: str) -> list:
+    """Registers, stack and spill bytes of every kernel in csrc/<source>,
+    from its -Xptxas -v report."""
+    out, name = [], None
+    for line in cuda_build.build_log(source).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out.append({"kernel": name, "stack": int(m.group(1)),
+                        "spill_stores": int(m.group(2)),
+                        "spill_loads": int(m.group(3))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1]["kernel"] == name:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_opcodes(source: str, prefix: str) -> dict:
+    """{kernel: count} of the SASS instructions whose opcode starts with
+    `prefix` in the library built from csrc/<source> (cuobjdump -sass)."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\*/\s+(@!?U?P\w+\s+)?" + prefix, line):
+            counts[name] += 1
+    return counts
+
+
+def baseline_call(lib):
+    """dense_groupby_sums through the first design's library (its own C
+    interface: one launch, the route chosen inside)."""
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.dense_groupby_sums_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ptrs, ints, ptrs, ints, ctypes.c_void_p, ctypes.c_void_p]
+    lib.dense_groupby_sums_launch.restype = ctypes.c_int
+
+    def call(seg, mask, pairs, G):
+        k = max(len(pairs), 1)
+        a_ptr, b_ptr = (ctypes.c_void_p * k)(), (ctypes.c_void_p * k)()
+        a_bytes, b_bytes = (ctypes.c_int * k)(), (ctypes.c_int * k)()
+        for i, (a, b) in enumerate(pairs):
+            a_ptr[i], a_bytes[i] = a.data_ptr(), a.element_size()
+            if b is not None:
+                b_ptr[i], b_bytes[i] = b.data_ptr(), b.element_size()
+        out = torch.zeros((G, len(pairs) + 1), dtype=torch.int64,
+                          device=seg.device)
+        err = lib.dense_groupby_sums_launch(
+            seg.data_ptr(), mask.data_ptr(), seg.shape[0], G, len(pairs),
+            a_ptr, a_bytes, b_ptr, b_bytes, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"first-design kernel launch failed: CUDA error {err}")
+        return out[:, :len(pairs)], out[:, len(pairs)]
+    return call
+
+
+def kernel_timing(call, iters: int, flush: L2Flush, baseline) -> dict:
     """On the inputs of one recorded main-path call: the kernel held against
-    its plain version bit for bit, then the ms of the kernel, the plain
-    version and one index_add_, with the bytes bound of that data."""
+    its plain version bit for bit (twice), then the cold-L2 device ms of the
+    kernel, of its first design (`baseline`, checked too), of the plain
+    version and of one index_add_, with the bytes bound of that data."""
     seg, mask, pairs, G = call
     n = seg.shape[0]
     got = DA.dense_groupby_sums(seg, mask, pairs, G)
+    again = DA.dense_groupby_sums(seg, mask, pairs, G)
     want = DA.dense_groupby_sums_plain(seg, mask, pairs, G)
-    check(all(torch.equal(g, w) for g, w in zip(got, want)),
-          f"main-path call (G={G}): kernel differs from the plain version")
+    check(all(torch.equal(g, w) and torch.equal(g, a)
+              for g, w, a in zip(got, want, again)),
+          f"main-path call (G={G}): kernel differs from the plain version "
+          f"or between runs")
     live = mask & (seg >= 0) & (seg < G)
     n_live = int(live.sum())
     # bytes the data needs: seg and mask of every row, each distinct factor
@@ -257,28 +462,46 @@ def kernel_timing(call, iters: int) -> dict:
     nbytes = (n * (seg.element_size() + mask.element_size())
               + n_live * sum(factors.values())
               + G * (max(len(pairs), 1) + 1) * 8)
-    kernel_ms = cuda_ms(lambda: DA.dense_groupby_sums(seg, mask, pairs, G), iters)
-    plain_ms = cuda_ms(lambda: DA.dense_groupby_sums_plain(seg, mask, pairs, G),
-                       max(iters // 10, 3))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    kernel = lambda: DA.dense_groupby_sums(seg, mask, pairs, G)  # noqa: E731
+    kernel_ms = cold_ms(kernel, iters, flush)
+    profiled_ms = profiled_kernel_ms(kernel, iters, flush, "dgs_")
+    back_to_back_ms = warm_ms(kernel, iters)
+    first = baseline(seg, mask, pairs, G)
+    check(torch.equal(first[0], want[0]) and torch.equal(first[1], want[1]),
+          f"main-path call (G={G}): the first design differs from the plain "
+          f"version")
+    baseline_ms = cold_ms(lambda: baseline(seg, mask, pairs, G), iters, flush)
+    plain_ms = cold_ms(lambda: DA.dense_groupby_sums_plain(seg, mask, pairs, G),
+                       max(iters // 10, 3), flush)
     # the yardstick: one index_add_ of the precomputed product matrix
     bucket = torch.where(live, seg.to(torch.int64), G)
     vals = torch.stack([a.to(torch.int64) * (1 if b is None else b.to(torch.int64))
                         for a, b in pairs]
                        + [torch.ones(n, dtype=torch.int64, device=seg.device)], 1)
     acc = torch.zeros((G + 1, vals.shape[1]), dtype=torch.int64, device=seg.device)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, bucket, vals), iters)
+    library_ms = cold_ms(lambda: acc.index_add_(0, bucket, vals), iters, flush)
+    check(min(kernel_ms, profiled_ms) >= bound_ms,
+          f"G={G}: a reading below the bound ({kernel_ms} / {profiled_ms} ms "
+          f"< {bound_ms} ms) means the timing is wrong")
     return {"n": n, "G": G, "pairs": len(pairs), "bit_exact": True,
             "live_rows": n_live,
             "distinct_factor_columns": len(factors),
-            "route": DA.kernel_route(G, len(pairs)), "ms": kernel_ms,
+            "distinct_pairs": len(DA.distinct_pairs(pairs)[0]),
+            "plan": DA.card_plan(seg, G, len(DA.distinct_pairs(pairs)[0]))._asdict(),
+            "ms": kernel_ms, "profiled_ms": profiled_ms,
+            "ms_warm_back_to_back": back_to_back_ms,
+            "ms_shared_atomics_same_method": baseline_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes"}
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
-def query_timing(ctx, sf: float, qid: int, repeat: int) -> dict:
+def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
     """Host wall time of warm runs: sql() + collect() each time, and
-    collect() of one DataFrame whose plan is reused."""
+    collect() of one DataFrame whose plan is reused; then the reused-plan
+    collect() once more with the engine's kernel and with its first design
+    (`baseline`) swapped in, in turns (new, first, first, new, ...), so that
+    the two differ only by the kernel."""
     sql = query(qid, sf)
     df = ctx.sql(sql)
     df.collect()
@@ -290,10 +513,25 @@ def query_timing(ctx, sf: float, qid: int, repeat: int) -> dict:
         t0 = time.perf_counter()
         df.collect()
         exe.append((time.perf_counter() - t0) * 1e3)
+    turns = {"kernel": [], "first_design": []}
+    kernel = DA.dense_groupby_sums
+    try:
+        for i in range(4 * repeat):
+            name = ("kernel", "first_design", "first_design", "kernel")[i % 4]
+            DA.dense_groupby_sums = kernel if name == "kernel" else baseline
+            df.collect()  # warm this kernel
+            t0 = time.perf_counter()
+            df.collect()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        DA.dense_groupby_sums = kernel
     return {"query": f"q{qid}", "sf": sf, "repeat": repeat,
             "sql_collect_ms_median": statistics.median(full),
             "sql_collect_ms": full,
-            "collect_ms_median": statistics.median(exe), "collect_ms": exe}
+            "collect_ms_median": statistics.median(exe), "collect_ms": exe,
+            "collect_ms_median_in_turns": {k: statistics.median(v)
+                                           for k, v in turns.items()},
+            "collect_ms_in_turns": turns}
 
 
 def profile_query(ctx, sf: float, qid: int) -> dict:
@@ -329,7 +567,8 @@ def main() -> int:
     ap.add_argument("--repeat", type=int, default=5,
                     help="warm end-to-end runs per query")
     ap.add_argument("--iters", type=int, default=50,
-                    help="back-to-back launches per kernel timing")
+                    help="timed launches per kernel timing, each after an "
+                         "L2 flush (the median is reported)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -344,9 +583,24 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    cuda_build.build_all([DA.SOURCE])
-    emit({"build_s": time.perf_counter() - t0, "sources": [DA.SOURCE]})
+    sources = [DA.SOURCE, BASELINE]
+    cuda_build.build_all(sources)
+    emit({"build_s": time.perf_counter() - t0, "sources": sources})
     print(cuda_build.build_log(DA.SOURCE), flush=True)
+    report = build_report(DA.SOURCE)
+    emit({"ptxas": DA.SOURCE, "kernels": report})
+    check(len(report) == len(DA.REGISTER_SHAPES) + 2,
+          f"{len(report)} kernels in the -Xptxas -v report")
+    check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in report),
+          "a kernel spills registers")
+    # shared-memory atomics (ATOMS): none in the kernel; the first design's
+    # 64-bit adds are compare-and-swap loops (ATOMS.CAST.SPIN.64)
+    atoms = {s: sass_opcodes(s, "ATOMS") for s in sources}
+    emit({"sass_shared_atomics": atoms})
+    check(len(atoms[DA.SOURCE]) == len(report)
+          and not any(atoms[DA.SOURCE].values()),
+          f"shared-memory atomics in {DA.SOURCE}: {atoms[DA.SOURCE]}")
+    baseline = baseline_call(cuda_build.load(BASELINE))
 
     max_err = compare_kernel(dev)
 
@@ -364,13 +618,14 @@ def main() -> int:
     launches = sum(n for n, _ in main_path.values())
 
     shapes = {}
+    flush = L2Flush(dev)
     for qid, (n, calls) in main_path.items():
-        t = kernel_timing(calls[-1], args.iters)
+        t = kernel_timing(calls[-1], args.iters, flush, baseline)
         t["launches_per_query"] = n
         shapes[f"q{qid}"] = t
         emit({"kernel_timing": KERNEL["name"], "shape": f"q{qid}", **t})
     for qid in (1, 6):
-        emit(query_timing(ctx, args.sf, qid, args.repeat))
+        emit(query_timing(ctx, args.sf, qid, args.repeat, baseline))
     for qid in (1, 6):
         emit(profile_query(ctx, args.sf, qid))
 
@@ -378,7 +633,10 @@ def main() -> int:
     emit({"kernels": [{**KERNEL, "launches": launches, "max_abs_err": max_err,
                        "ms": q1["ms"], "plain_ms": q1["plain_ms"],
                        "bound_ms": q1["bound_ms"], "bound_by": "bytes",
-                       "library_ms": q1["library_ms"], "shapes": shapes}]})
+                       "library_ms": q1["library_ms"],
+                       "ms_shared_atomics_same_method":
+                           q1["ms_shared_atomics_same_method"],
+                       "shapes": shapes}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

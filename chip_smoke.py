@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (datafusion_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--sf 1] [--repeat 5]
+    python3 chip_smoke.py [--sf 1] [--h2o-rows 10000000] [--repeat 5]
 
 Run from the repository root on a machine with one CUDA card and nvcc. In
 order, it:
@@ -25,7 +25,18 @@ order, it:
      first design, its plain version, one PyTorch library call computing the
      same function, and its bound (bytes the data needs / the card's memory
      rate), then times warm Q1 and Q6 end to end;
-  6. prints a {"kernels": [...]} line, the card's name and power limit, and,
+  6. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
+     K = 100, seed 42) and runs groupby q1-q7, q9 and q10 through the same
+     API -- the second main path -- each checked against a pandas oracle on
+     the same table (floats to rtol 1e-9 / atol 1e-9, the rest exact) with
+     the kernel's launches counted per query (q1, q2 and q4 launch it, on its
+     shared and global routes); checks that q8 (a window query) raises; holds
+     segment min/max on the card against the CPU on NaN, -0.0 and int64
+     extremes; holds the kernel against its plain version at the h2o shapes
+     and times it there as in 5; times each query warm and profiles it once
+     (device busy, idle share, top device ops, and the sort path's sorts,
+     gathers, cumulative sums and scatters);
+  7. prints a {"kernels": [...]} line, the card's name and power limit, and,
      last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA device it exits with code 2 at once.
@@ -42,15 +53,20 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from datafusion_tpu_torch import Schema, SessionContext, Table
+from datafusion_tpu_torch.models.h2o.datagen import generate_groupby
+from datafusion_tpu_torch.models.h2o.queries import GROUPBY_QUERIES
 from datafusion_tpu_torch.models.tpch.compare import frames_diff
 from datafusion_tpu_torch.models.tpch.datagen import generate_tpch
 from datafusion_tpu_torch.models.tpch.queries import query
 from datafusion_tpu_torch.models.tpch.queries_ref import ref_query
 from datafusion_tpu_torch.ops import cuda_build
 from datafusion_tpu_torch.ops import dense_agg as DA
+from datafusion_tpu_torch.ops import kernels as K
+from datafusion_tpu_torch.physical import plan as P
 
 # H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
@@ -136,25 +152,46 @@ def warm_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_kernel_ms(fn, iters: int, flush: L2Flush, name: str) -> float:
-    """Mean self device time of the kernels whose name contains `name`, over
-    `iters` calls of fn each after an L2 flush, read from torch.profiler:
-    the cross-check of cold_ms without the events' own resolution."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profiled(activities, warmup, active):
+    """torch.profiler over two steps: warmup() runs in the profiler's
+    warm-up step, whose events are discarded (the first device events of a
+    session can be lost), active() in the recorded step. Returns the
+    profile."""
+    from torch.profiler import profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush()
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for step in (warmup, active):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
+def profiled_kernel_ms(fn, iters: int, flush: L2Flush, name: str):
+    """(mean self device time of the kernels whose name contains `name` over
+    `iters` calls of fn each after an L2 flush, read from torch.profiler:
+    the cross-check of cold_ms without the events' own resolution; the
+    number of those kernels the profiler saw)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    def calls(k):
+        def run():
+            for _ in range(k):
+                flush()
+                fn()
+        return run
+
+    prof = profiled([ProfilerActivity.CUDA], calls(3), calls(iters))
     hits = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and name in e.key]
-    check(sum(e.count for e in hits) == iters,
-          f"profiler saw {sum(e.count for e in hits)} '{name}' kernels in "
-          f"{iters} calls")
-    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+    # the mean is over the launches the profiler saw; most must be there
+    seen = sum(e.count for e in hits)
+    check(iters // 2 <= seen <= iters,
+          f"profiler saw {seen} '{name}' kernels in {iters} calls")
+    return sum(e.self_device_time_total for e in hits) / seen / 1e3, seen
 
 
 # ---------------------------------------------------------------------------
@@ -465,7 +502,7 @@ def kernel_timing(call, iters: int, flush: L2Flush, baseline) -> dict:
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     kernel = lambda: DA.dense_groupby_sums(seg, mask, pairs, G)  # noqa: E731
     kernel_ms = cold_ms(kernel, iters, flush)
-    profiled_ms = profiled_kernel_ms(kernel, iters, flush, "dgs_")
+    profiled_ms, profiled_seen = profiled_kernel_ms(kernel, iters, flush, "dgs_")
     back_to_back_ms = warm_ms(kernel, iters)
     first = baseline(seg, mask, pairs, G)
     check(torch.equal(first[0], want[0]) and torch.equal(first[1], want[1]),
@@ -490,19 +527,16 @@ def kernel_timing(call, iters: int, flush: L2Flush, baseline) -> dict:
             "distinct_pairs": len(DA.distinct_pairs(pairs)[0]),
             "plan": DA.card_plan(seg, G, len(DA.distinct_pairs(pairs)[0]))._asdict(),
             "ms": kernel_ms, "profiled_ms": profiled_ms,
+            "profiled_launches_seen": profiled_seen,
             "ms_warm_back_to_back": back_to_back_ms,
             "ms_shared_atomics_same_method": baseline_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
-def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
-    """Host wall time of warm runs: sql() + collect() each time, and
-    collect() of one DataFrame whose plan is reused; then the reused-plan
-    collect() once more with the engine's kernel and with its first design
-    (`baseline`) swapped in, in turns (new, first, first, new, ...), so that
-    the two differ only by the kernel."""
-    sql = query(qid, sf)
+def warm_timing(ctx, sql: str, repeat: int):
+    """(DataFrame, dict) -- host wall time of warm runs: sql() + collect()
+    each time, and collect() of one DataFrame whose plan is reused."""
     df = ctx.sql(sql)
     df.collect()
     full, exe = [], []
@@ -513,6 +547,18 @@ def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
         t0 = time.perf_counter()
         df.collect()
         exe.append((time.perf_counter() - t0) * 1e3)
+    return df, {"repeat": repeat,
+                "sql_collect_ms_median": statistics.median(full),
+                "sql_collect_ms": full,
+                "collect_ms_median": statistics.median(exe), "collect_ms": exe}
+
+
+def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
+    """warm_timing, then the reused-plan collect() once more with the
+    engine's kernel and with its first design (`baseline`) swapped in, in
+    turns (new, first, first, new, ...), so that the two differ only by the
+    kernel."""
+    df, out = warm_timing(ctx, query(qid, sf), repeat)
     turns = {"kernel": [], "first_design": []}
     kernel = DA.dense_groupby_sums
     try:
@@ -525,45 +571,284 @@ def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
             turns[name].append((time.perf_counter() - t0) * 1e3)
     finally:
         DA.dense_groupby_sums = kernel
-    return {"query": f"q{qid}", "sf": sf, "repeat": repeat,
-            "sql_collect_ms_median": statistics.median(full),
-            "sql_collect_ms": full,
-            "collect_ms_median": statistics.median(exe), "collect_ms": exe,
+    return {"query": f"q{qid}", "sf": sf, **out,
             "collect_ms_median_in_turns": {k: statistics.median(v)
                                            for k, v in turns.items()},
             "collect_ms_in_turns": turns}
 
 
-def profile_query(ctx, sf: float, qid: int) -> dict:
-    """One warm collect() (plan reused) under torch.profiler: device busy
-    time summed over kernels and copies on the card, the host wall time of
-    the window, and the kernels that took the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# device-op families of the sort path, matched in order on kernel names
+OP_FAMILIES = (("dense_groupby_sums", ("dgs_",)),
+               ("sort", ("sort", "Sort")),
+               ("scatter", ("scatter", "indexFunc", "index_add")),
+               ("gather", ("index_elementwise", "gather", "index_kernel")),
+               ("cumsum", ("scan", "Scan", "cumsum")),
+               ("copy", ("Memcpy", "Memset", "copy")))
 
-    df = ctx.sql(query(qid, sf))
+
+def op_family(name: str) -> str:
+    for family, needles in OP_FAMILIES:
+        if any(k in name for k in needles):
+            return family
+    return "other"
+
+
+def profile_query(ctx, label: str, sql: str, expect=()) -> dict:
+    """One warm collect() (plan reused) under torch.profiler, after one in
+    its warm-up step: device busy time summed over kernels and copies on the
+    card, the host wall time of the window, the kernels that took the most
+    device time, and the device time of each op family (OP_FAMILIES). A
+    profile that lost every device event, or a family in `expect`, is taken
+    again (up to 3 times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    df = ctx.sql(sql)
     df.collect()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        df.collect()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    for attempt in range(1, 4):
+        wall = []
+
+        def timed_collect():
+            t0 = time.perf_counter()
+            df.collect()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+
+        prof = profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        df.collect, timed_collect)
+        # the step annotation spans the whole step: not a device op
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith("ProfilerStep")]
+        if device and all(any(op_family(e.key) == f for e in device)
+                          for f in expect):
+            break
+    check(bool(device), f"profile {label}: no device events in 3 attempts")
+    wall_ms = wall[0]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
-    return {"profile": f"q{qid}", "sf": sf, "wall_ms": wall_ms,
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    families = {}
+    for e in device:
+        f = families.setdefault(op_family(e.key), {"ms": 0.0, "count": 0})
+        f["ms"] += e.self_device_time_total / 1e3
+        f["count"] += e.count
+    return {"profile": label, "attempts": attempt, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if device else None,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_ops": sum(e.count for e in device),
+            "families": families,
             "top": [{"name": e.key[:90], "count": e.count,
                      "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+# ---------------------------------------------------------------------------
+# 6. the h2o.ai groupby suite
+# ---------------------------------------------------------------------------
+
+H2O_K = 100
+H2O_QUERIES = (1, 2, 3, 4, 5, 6, 7, 9, 10)  # q8 is a window query
+# the kernel's launches per query, and its route there: q1 and q4 group by
+# ~100 keys (shared route), q2 by ~10 000 (global route); the others sort
+# or take no kernel-eligible aggregate
+H2O_LAUNCHES = {1: 1, 2: 1, 4: 1}
+H2O_ROUTES = {1: "shared", 2: "global", 4: "shared"}
+
+
+def h2o_frame(table: Table):
+    """The table as pandas, string ids as their dictionary codes: the
+    dictionaries are sorted, so codes group and order as the strings do
+    (and converting 3 x 1e7 strings to Python objects would take a minute)."""
+    import pandas as pd
+
+    return pd.DataFrame({f.name: np.asarray(c.data)
+                         for f, c in zip(table.schema.fields, table.columns)})
+
+
+def _r2(g):
+    c = np.corrcoef(g["v1"], g["v2"])[0, 1]
+    return c * c
+
+
+def h2o_oracle(qid: int, x):
+    """h2o groupby query `qid` in pandas (as tests/test_torch_h2o.py)."""
+    if qid == 1:
+        return x.groupby("id1", as_index=False).agg(v1=("v1", "sum"))
+    if qid == 2:
+        return x.groupby(["id1", "id2"], as_index=False).agg(v1=("v1", "sum"))
+    if qid == 3:
+        return x.groupby("id3", as_index=False).agg(v1=("v1", "sum"),
+                                                    v3=("v3", "mean"))
+    if qid == 4:
+        return x.groupby("id4", as_index=False).agg(
+            v1=("v1", "mean"), v2=("v2", "mean"), v3=("v3", "mean"))
+    if qid == 5:
+        return x.groupby("id6", as_index=False).agg(
+            v1=("v1", "sum"), v2=("v2", "sum"), v3=("v3", "sum"))
+    if qid == 6:
+        return x.groupby(["id4", "id5"], as_index=False).agg(
+            median_v3=("v3", "median"), sd_v3=("v3", "std"))
+    if qid == 7:
+        ref = x.groupby("id3", as_index=False).agg(mx=("v1", "max"),
+                                                   mn=("v2", "min"))
+        ref["range_v1_v2"] = ref.pop("mx") - ref.pop("mn")
+        return ref
+    if qid == 9:
+        return (x.groupby(["id2", "id4"]).apply(_r2, include_groups=False)
+                .reset_index(name="r2"))
+    if qid == 10:
+        return x.groupby(["id1", "id2", "id3", "id4", "id5", "id6"],
+                         as_index=False).agg(v3=("v3", "sum"), cnt=("v1", "size"))
+    raise ValueError(qid)
+
+
+def h2o_compare(qid: int, ours: Table, ref, table: Table) -> None:
+    """Multiset equality of our answer and the oracle's: rows matched by
+    their group keys (unique per row), floats to rtol 1e-9 / atol 1e-9, the
+    rest exact. String keys compare as codes of the input's dictionary."""
+    names = [f.name for f in ours.schema.fields]
+    check(names == list(ref.columns), f"h2o q{qid}: columns {names} vs "
+                                      f"{list(ref.columns)}")
+    check(ours.num_rows == len(ref), f"h2o q{qid}: {ours.num_rows} rows, "
+                                     f"oracle {len(ref)}")
+    keys = [n for n in names if n.startswith("id")]
+    cols = {}
+    for f, c in zip(ours.schema.fields, ours.columns):
+        data = np.asarray(c.data)
+        if c.validity is not None and not c.validity.all():
+            # NULL is pandas' NaN (stddev or corr of a one-row group)
+            check(f.dtype.is_float, f"h2o q{qid}: NULLs in {f.name}")
+            data = np.where(c.validity, data, np.nan)
+        if c.dictionary is not None:
+            src = table.columns[table.schema.index_of(f.name)].dictionary
+            check(np.array_equal(c.dictionary.values, src.values),
+                  f"h2o q{qid}: {f.name} has another dictionary")
+        cols[f.name] = data
+    order = np.lexsort([cols[k] for k in reversed(keys)])
+    ref_order = np.lexsort([ref[k].to_numpy() for k in reversed(keys)])
+    for n in names:
+        a, b = cols[n][order], ref[n].to_numpy()[ref_order]
+        if np.issubdtype(b.dtype, np.floating):
+            ok = np.allclose(a.astype(np.float64), b, rtol=1e-9, atol=1e-9,
+                             equal_nan=True)
+            err = float(np.nanmax(np.abs(a - b))) if len(b) else 0.0
+        else:
+            ok = np.array_equal(a.astype(b.dtype), b)
+            err = None
+        check(ok, f"h2o q{qid}: column {n} differs from the oracle "
+                  f"(max abs err {err})")
+
+
+def aggregate_path(df) -> str:
+    """Which AggregateExec path the plan's aggregate took in its last run."""
+    stack = [df.physical_plan()]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, P.AggregateExec):
+            return "sorted" if hasattr(p, "_last_cap") else "dense"
+        stack.extend(p.children())
+    return "none"
+
+
+class RecordSortKeys:
+    """Counts the sorts that packed their keys into one int64 key and those
+    that fell back to one stable pass per key operand."""
+
+    def __enter__(self):
+        self.packed = self.multipass = 0
+        self._orig = K._packed_sort_key
+
+        def recording(keys, sel):
+            out = self._orig(keys, sel)
+            if out is None:
+                self.multipass += 1
+            else:
+                self.packed += 1
+            return out
+
+        K._packed_sort_key = recording
+        return self
+
+    def __exit__(self, *exc):
+        K._packed_sort_key = self._orig
+
+
+def run_h2o(ctx, table: Table, frame) -> dict:
+    """h2o groupby q1-q7, q9, q10 once each through the public API, checked
+    against the pandas oracle; q8 must raise. Returns {qid: (launches,
+    recorded kernel calls)}."""
+    out = {}
+    for qid in H2O_QUERIES:
+        sql = GROUPBY_QUERIES[qid - 1]
+        df = ctx.sql(sql)
+        DA.reset_launches()
+        with RecordKernelInputs() as rec, RecordSortKeys() as sorts:
+            t0 = time.perf_counter()
+            got = df.collect()
+            secs = time.perf_counter() - t0
+        launches = DA.launches
+        t0 = time.perf_counter()
+        ref = h2o_oracle(qid, frame)
+        oracle_s = time.perf_counter() - t0
+        h2o_compare(qid, got, ref, table)
+        want = H2O_LAUNCHES.get(qid, 0)
+        check(launches == want == len(rec.calls),
+              f"h2o q{qid}: {launches} kernel launches ({len(rec.calls)} "
+              f"calls), want {want}")
+        routes = [DA.kernel_route(G, len(DA.distinct_pairs(pairs)[0]))
+                  for _, _, pairs, G in rec.calls]
+        if qid in H2O_ROUTES:
+            check(routes == [H2O_ROUTES[qid]],
+                  f"h2o q{qid}: kernel routes {routes}, want {H2O_ROUTES[qid]}")
+        emit({"h2o_query": f"q{qid}", "rows_in": table.num_rows,
+              "rows_out": got.num_rows, "first_run_s": secs,
+              "oracle_s": oracle_s, "path": aggregate_path(df),
+              "sorts_packed": sorts.packed, "sorts_multipass": sorts.multipass,
+              "kernel_launches": launches, "kernel_routes": routes,
+              "groups": [G for _, _, _, G in rec.calls],
+              "matches_oracle": True})
+        out[qid] = (launches, rec.calls)
+    try:
+        ctx.sql(GROUPBY_QUERIES[7]).collect()
+        raise RuntimeError("chip_smoke: h2o q8 (a window query) answered")
+    except NotImplementedError as e:
+        check("item 8" in str(e), f"h2o q8 raised without its ROADMAP item: {e}")
+        emit({"h2o_query": "q8", "raises": "NotImplementedError",
+              "message": str(e)})
+    return out
+
+
+def check_segment_extremes(dev) -> None:
+    """Segment min/max on the card against the CPU: NaN propagates, empty
+    segments hold the identity, int64 extremes survive, ids outside
+    [0, num_segments) are dropped; -0.0 equals +0.0."""
+    inputs = {
+        "float": torch.tensor([1.0, float("nan"), 2.0, -0.0, 0.0, 0.0, -0.0,
+                               3.0, float("inf"), -float("inf"), 7.5, 1.0],
+                              dtype=torch.float64),
+        "int64": torch.tensor([-(2 ** 63), 2 ** 63 - 1, 0, -1, 2 ** 63 - 1,
+                               -(2 ** 63), 5, 3, 0, 2, 1, 7], dtype=torch.int64),
+        "bool": torch.tensor([1, 0, 1, 1, 0, 0, 1, 0, 1, 1, 0, 1], dtype=torch.bool),
+    }
+    seg = torch.tensor([0, 0, 1, 1, 1, 2, 2, 3, -1, 6, 5, 5], dtype=torch.int32)
+    mask = torch.tensor([1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0], dtype=torch.bool)
+    for kind, x in inputs.items():
+        for fn in (K.segment_min, K.segment_max):
+            for G in (1, 6):
+                want = fn(x, seg, mask, G)
+                got = fn(x.to(dev), seg.to(dev), mask.to(dev), G).cpu()
+                same = (torch.equal(got, want) if kind != "float" else
+                        bool(((got == want) | (got.isnan() & want.isnan())).all()))
+                check(same, f"{fn.__name__}({kind}, G={G}) on the card "
+                            f"{got.tolist()} vs the CPU {want.tolist()}")
+    emit({"segment_extremes_card_vs_cpu": "equal"})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
+    ap.add_argument("--h2o-rows", type=int, default=10_000_000,
+                    help="rows of the h2o groupby table (K = 100)")
     ap.add_argument("--repeat", type=int, default=5,
                     help="warm end-to-end runs per query")
     ap.add_argument("--iters", type=int, default=50,
@@ -627,7 +912,33 @@ def main() -> int:
     for qid in (1, 6):
         emit(query_timing(ctx, args.sf, qid, args.repeat, baseline))
     for qid in (1, 6):
-        emit(profile_query(ctx, args.sf, qid))
+        emit(profile_query(ctx, f"q{qid}", query(qid, args.sf),
+                           expect=("dense_groupby_sums",)))
+
+    check_segment_extremes(dev)
+    t0 = time.perf_counter()
+    h2o = generate_groupby(args.h2o_rows, k=H2O_K, seed=42)
+    gen_s = time.perf_counter() - t0
+    ctx.register_table("x", h2o)
+    frame = h2o_frame(h2o)
+    emit({"h2o_datagen_s": gen_s, "rows": h2o.num_rows, "k": H2O_K,
+          "distinct": {f.name: len(c.dictionary.values)
+                       for f, c in zip(h2o.schema.fields, h2o.columns)
+                       if c.dictionary is not None}})
+    h2o_path = run_h2o(ctx, h2o, frame)
+    launches += sum(n for n, _ in h2o_path.values())
+    for qid, (n, calls) in h2o_path.items():
+        for call in calls:
+            t = kernel_timing(call, args.iters, flush, baseline)
+            t["launches_per_query"] = n
+            shapes[f"h2o_q{qid}"] = t
+            emit({"kernel_timing": KERNEL["name"], "shape": f"h2o_q{qid}", **t})
+    for qid in H2O_QUERIES:
+        emit({"h2o_timing": f"q{qid}",
+              **warm_timing(ctx, GROUPBY_QUERIES[qid - 1], args.repeat)[1]})
+        emit(profile_query(ctx, f"h2o_q{qid}", GROUPBY_QUERIES[qid - 1],
+                           expect=("dense_groupby_sums",) if qid in H2O_LAUNCHES
+                           else ()))
 
     q1 = shapes["q1"]
     emit({"kernels": [{**KERNEL, "launches": launches, "max_abs_err": max_err,

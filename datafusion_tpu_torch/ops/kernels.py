@@ -6,13 +6,17 @@ ops:
 * `sort_rows` / `sort_permutation` -- multi-key stable sort with ASC/DESC,
   NULLS FIRST/LAST and dead-row (sel=False) sinking;
 * `compaction_indices` -- the first `cap` live row indices, ascending;
-* masked segment reductions over dense group ids.
+* `segments_from_sorted_keys` -- group boundaries and dense segment ids of
+  rows sorted by their group keys;
+* masked segment reductions (sum, count, min, max) over dense group ids.
 
 Every sort is stable (`torch.sort(..., stable=True)`), as every reference
 sort is. Segment ids at or beyond the segment count are dropped, as
 `jax.ops.segment_sum` drops them: torch's `index_add_` would raise on them
 (CPU) or write out of bounds (CUDA), so they are routed to one extra bucket
-that is sliced off.
+that is sliced off. Segment min/max start from the reduction's identity
+and scatter with `include_self=False`: torch's `scatter_reduce_` would
+otherwise fold the starting value into every segment.
 """
 from __future__ import annotations
 
@@ -138,6 +142,33 @@ def compaction_indices(sel: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch
 # ---------------------------------------------------------------------------
 
 
+def segments_from_sorted_keys(
+    sorted_keys: Sequence[torch.Tensor],
+    sorted_validity: Sequence[Optional[torch.Tensor]],
+    sorted_sel: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Given key columns already sorted (live rows first), return
+    (segment_ids[int32], is_group_start[bool], num_groups[0-d int32]).
+    Dead rows are parked on segment id n-1; callers mask them out via
+    sorted_sel."""
+    n = sorted_sel.shape[0]
+    differs = torch.zeros(n, dtype=torch.bool, device=sorted_sel.device)
+    for k, v in zip(sorted_keys, sorted_validity):
+        prev = torch.cat([k[:1], k[:-1]])
+        d = k != prev
+        if v is not None:
+            pv = torch.cat([v[:1], v[:-1]])
+            d = (d & v & pv) | (v != pv)
+        differs = differs | d
+    first = torch.zeros(n, dtype=torch.bool, device=sorted_sel.device)
+    first[:1] = True
+    is_start = sorted_sel & (first | differs)
+    seg = torch.cumsum(is_start, 0, dtype=torch.int32) - 1
+    seg = torch.where(sorted_sel, seg, n - 1)  # park dead rows on last slot
+    num_groups = is_start.sum(dtype=torch.int32)
+    return seg.to(torch.int32), is_start, num_groups
+
+
 def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
     """Result dtype of a full reduction, as jnp.sum gives it under x64:
     bools and integers narrower than 64 bits widen to int64."""
@@ -167,3 +198,51 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
 
 def segment_count(seg: torch.Tensor, mask: torch.Tensor, num_segments: int) -> torch.Tensor:
     return segment_sum(mask.to(torch.int64), seg, mask, num_segments)
+
+
+def _max_ident(dtype: torch.dtype):
+    """Identity of min: the dtype's largest value."""
+    if dtype is torch.bool:
+        return True
+    if not dtype.is_floating_point:
+        return torch.iinfo(dtype).max
+    return float("inf")
+
+
+def _min_ident(dtype: torch.dtype):
+    """Identity of max: the dtype's smallest value."""
+    if dtype is torch.bool:
+        return False
+    if not dtype.is_floating_point:
+        return torch.iinfo(dtype).min
+    return float("-inf")
+
+
+def _segment_extreme(values: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
+                     num_segments: int, is_max: bool) -> torch.Tensor:
+    """Masked segment min/max; empty segments hold the identity, NaN
+    propagates (as jax.ops.segment_min/max and jnp.min/max). bools reduce as
+    uint8."""
+    ident = _min_ident(values.dtype) if is_max else _max_ident(values.dtype)
+    z = torch.where(mask, values, torch.full_like(values, ident))
+    work = z.to(torch.uint8) if z.dtype is torch.bool else z
+    if num_segments == 1:
+        # global aggregate: a plain reduction, over every row
+        out = (work.amax() if is_max else work.amin()).reshape(1)
+    else:
+        out = torch.full((num_segments + 1,), ident, dtype=work.dtype,
+                         device=z.device)
+        out = out.scatter_reduce_(0, _bucketed(seg, num_segments), work,
+                                  "amax" if is_max else "amin",
+                                  include_self=False)[:num_segments]
+    return out.to(torch.bool) if z.dtype is torch.bool else out
+
+
+def segment_min(values: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    return _segment_extreme(values, seg, mask, num_segments, False)
+
+
+def segment_max(values: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    return _segment_extreme(values, seg, mask, num_segments, True)

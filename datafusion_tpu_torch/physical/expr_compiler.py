@@ -9,8 +9,9 @@ index tensors on the relation's device.
 Ported: columns, literals, aliases, sort keys, numeric/decimal/temporal
 casts, negation, NOT, IS NULL, binary operators (logic, comparison,
 arithmetic, decimal and date arithmetic), BETWEEN, interval bounds
-propagation and predicates. LIKE, CASE, IN lists, scalar functions and casts
-to or from strings are not ported yet and raise NotImplementedError.
+propagation and predicates, and the scalar functions physical/functions.py
+has. LIKE, CASE, IN lists, the other scalar functions and casts to or from
+strings are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -448,7 +449,14 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
         if e.negated:
             out = DeviceColumn(~out.data, out.validity, T.BOOL)
         return out
-    if isinstance(e, (E.InList, E.Like, E.Case, E.ScalarFunction)):
+    if isinstance(e, E.ScalarFunction):
+        from ..expr.udf import active_registry
+        from . import functions as F
+
+        if active_registry().scalar(e.fname) is not None:
+            raise _not_ported(f"scalar UDF {e.fname!r}")
+        return F.eval_scalar_function(e.fname, [eval_expr(a, rel) for a in e.args])
+    if isinstance(e, (E.InList, E.Like, E.Case)):
         raise _not_ported(f"{type(e).__name__} ({e.name()})")
     raise PlanError(f"cannot evaluate {type(e).__name__} on device: {e!r}")
 

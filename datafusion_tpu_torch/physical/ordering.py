@@ -1,9 +1,10 @@
 """Output-ordering propagation and sort elision.
 
 Port of datafusion_tpu/physical/ordering.py for the operators this package
-has. A dense aggregate emits its groups ascending by key (codes are
-order-preserving), so a SortExec over the same keys -- TPC-H Q1's ORDER BY
--- is planned as presorted and costs nothing. Orderings are
+has. Both aggregate paths emit their groups ascending by key (dense codes
+are order-preserving; the sort path sorts by the keys), and DISTINCT its
+rows ascending by every column, so a SortExec over the same keys -- TPC-H
+Q1's ORDER BY -- is planned as presorted and costs nothing. Orderings are
 (schema_index, asc, nulls_first) prefixes over each operator's own output
 schema.
 """
@@ -23,8 +24,11 @@ def output_ordering(p: P.PhysicalPlan) -> Optional[Ordering]:
     if isinstance(p, P.AggregateExec):
         if not p.group_exprs:
             return None  # single row: trivially sorted, nothing to elide
-        # the dense path emits groups ascending by key, NULL keys last
+        # both the sorted path and the dense path emit groups ascending by
+        # key, NULL keys last
         return [(j, True, False) for j in range(len(p.group_exprs))]
+    if isinstance(p, P.DistinctExec):
+        return [(j, True, False) for j in range(len(p.schema))]
     if isinstance(p, P.SortExec):
         out: Ordering = []
         for s in p.specs:

@@ -3,16 +3,16 @@
 Port of datafusion_tpu/physical/plan.py to eager torch execution. Operators
 are whole-relation transforms over capacity-padded DeviceRelations: a filter
 flips selection bits, a compaction gathers live rows to the front of a
-smaller power-of-two capacity, and the grouped and global aggregates compute
-dense group ids arithmetically and sum every aggregate in one pass of the
-dense aggregation kernel (ops/dense_agg.py).
+smaller power-of-two capacity, and the grouped and global aggregates either
+compute dense group ids arithmetically (summing every kernel-eligible
+aggregate in one pass of the dense aggregation kernel, ops/dense_agg.py) or
+sort rows by their group keys (ops/groupby.py).
 
 Ported: ScanExec, FilterExec, ProjectionExec, LimitExec, SortExec (with
-fetch = TopK, and the presorted elision), CompactExec, and AggregateExec's
-global and dense paths. The sort-based grouping path, and aggregates the
-kernel cannot take (min/max, filtered or DISTINCT aggregates, floats), need
-ops/groupby.py's phase_sort/_reduce_one, which are ROADMAP queue 1 item 5;
-they raise NotImplementedError.
+fetch = TopK, and the presorted elision), CompactExec, DistinctExec, and
+AggregateExec's global, dense and sort-based paths (ops/groupby.py).
+Aggregates the kernel cannot take (min/max, filtered or DISTINCT aggregates,
+float sums, order statistics) go through ops/groupby._reduce_one.
 """
 from __future__ import annotations
 
@@ -32,8 +32,6 @@ from ..ops import groupby as G
 from ..ops import kernels as K
 from ..runtime.context import ExecContext
 from .expr_compiler import eval_expr, eval_predicate
-
-_GROUPING_ITEM = "ROADMAP queue 1, item 5 'ops/groupby.py -- sort-based grouping'"
 
 
 def _dense_int_offset(c: DeviceColumn) -> Optional[int]:
@@ -269,8 +267,11 @@ class AggregateExec(PhysicalPlan):
     """Grouped / global aggregation (reference: AggregateExec,
     physical-plan/src/aggregates/mod.rs:828). The dense path covers GROUP BY
     keys with a small static domain (dictionary codes, bools, bounds-proven
-    small integer ranges): group ids are computed arithmetically and every
-    sum/avg/count goes through one dense_groupby_sums pass."""
+    small integer ranges): group ids are computed arithmetically, every
+    sum/avg/count that factors into int32-bounded columns goes through one
+    dense_groupby_sums pass, and the other aggregates through
+    ops/groupby._reduce_one. Any other GROUP BY sorts rows by their keys
+    (ops/groupby.py)."""
 
     DENSE_LIMIT = 16384
 
@@ -293,10 +294,20 @@ class AggregateExec(PhysicalPlan):
             out.append(a)
         return out
 
+    def _check_ported(self) -> None:
+        """Aggregates whose accumulators are not ported raise before any
+        device work (ROADMAP queue 1, item 9)."""
+        from ..expr.udf import active_registry
+
+        for a in self._agg_fns():
+            if a.fname in G.NOT_PORTED or active_registry().aggregate(a.fname) is not None:
+                raise G.not_ported_error(a.fname)
+
     def _prepare(self, rel: DeviceRelation):
-        """Evaluate agg args and filters; build AggSpecs."""
+        """Evaluate group keys, agg args, filters; build AggSpecs."""
         from ..expr.typing import infer
 
+        group_cols = [eval_expr(g, rel) for g in self.group_exprs]
         arg_cols: List[DeviceColumn] = []
         filter_cols: List[torch.Tensor] = []
         specs: List[G.AggSpec] = []
@@ -304,6 +315,7 @@ class AggregateExec(PhysicalPlan):
         for a in self._agg_fns():
             fname = a.fname
             out_dtype, _ = infer(a, rel.schema)
+            extra = None
             if fname == "count" and not a.distinct and (
                     len(a.args) == 0
                     or (isinstance(a.args[0], E.Literal)
@@ -312,27 +324,71 @@ class AggregateExec(PhysicalPlan):
                 # must go through the null-skipping argument path
                 arg_i, fname, arg_dt = None, "count_star", None
             else:
+                two_arg = fname in ("corr", "covar", "covar_pop",
+                                    "covar_samp") or fname.startswith("regr_")
                 key = a.args[0]
                 arg_i = arg_index.get(key)
-                if arg_i is None:
-                    arg_i = arg_index[key] = len(arg_cols)
-                    arg_cols.append(eval_expr(key, rel))
-                arg_dt = arg_cols[arg_i].dtype
+                if arg_i is None or two_arg:
+                    arg = eval_expr(a.args[0], rel)
+                    arg_i = len(arg_cols)
+                    arg_cols.append(arg)
+                    if not two_arg:
+                        arg_index[key] = arg_i
+                else:
+                    arg = arg_cols[arg_i]
+                arg_dt = arg.dtype
+                if two_arg and len(a.args) > 1:
+                    arg_cols.append(eval_expr(a.args[1], rel))  # y at arg_i + 1
+                if fname in ("percentile_cont", "approx_percentile_cont") \
+                        and len(a.args) > 1 and isinstance(a.args[1], E.Literal):
+                    extra = float(a.args[1].value)
+                if fname == "nth_value":
+                    if len(a.args) < 2 or not isinstance(a.args[1], E.Literal):
+                        raise PlanError("nth_value requires a literal n")
+                    extra = float(a.args[1].value)
             filt_i = None
             if a.filter is not None:
                 filt_i = len(filter_cols)
                 filter_cols.append(eval_predicate(a.filter, rel))
-            specs.append(G.AggSpec(fname, arg_i, a.distinct, out_dtype, arg_dt,
-                                   filt_i))
-        return arg_cols, filter_cols, specs
+            order_arg = None
+            order_desc = False
+            aorder = getattr(a, "order_by", ())
+            if aorder:
+                # agg(x ORDER BY y [DESC]): the order expression rides the
+                # arg column list and keys this spec's sort bucket
+                if len(aorder) > 1:
+                    raise PlanError(
+                        "aggregate ORDER BY supports a single sort key")
+                if a.distinct:
+                    # reference rule: DISTINCT requires order == argument
+                    if aorder[0].expr != a.args[0] or not aorder[0].asc:
+                        raise PlanError(
+                            "DISTINCT aggregate ORDER BY must match the "
+                            "argument (ascending)")
+                elif fname in ("first_value", "last_value", "any_value",
+                               "nth_value"):
+                    order_arg = len(arg_cols)
+                    arg_cols.append(eval_expr(aorder[0].expr, rel))
+                    order_desc = not aorder[0].asc
+                # order-insensitive aggregates: ORDER BY is a no-op
+            specs.append(G.AggSpec(fname, arg_i, a.distinct, out_dtype,
+                                   arg_dt, filt_i, extra, order_arg,
+                                   order_desc,
+                                   getattr(a, "ignore_nulls", False)))
+        return group_cols, arg_cols, filter_cols, specs
+
+    def _phase_sort(self, rel: DeviceRelation):
+        """(one sorted state per order-arg bucket, the specs): each DISTINCT
+        or order-statistic argument sorts by (keys, its arg); the group
+        segmentation is identical across buckets."""
+        group_cols, arg_cols, filter_cols, specs = self._prepare(rel)
+        return (G.phase_sort_multi(group_cols, arg_cols, filter_cols, rel.sel,
+                                   specs), specs)
 
     def _dense_eligible(self) -> bool:
-        from ..expr.udf import active_registry
-
         return not any(a.distinct or a.fname in G._ORDER_SENSITIVE
                        or a.fname in G.DENSE_UNSUPPORTED
                        or getattr(a, "order_by", ())
-                       or active_registry().aggregate(a.fname) is not None
                        for a in self._agg_fns())
 
     def _global_dense_ok(self, rel: DeviceRelation) -> bool:
@@ -347,6 +403,13 @@ class AggregateExec(PhysicalPlan):
                 for afn in self._agg_fns())
             self._global_dense = cached
         return cached
+
+    def _global(self, rel: DeviceRelation) -> DeviceRelation:
+        _, arg_cols, filter_cols, specs = self._prepare(rel)
+        outs, out_sel = G.global_aggregate(arg_cols, filter_cols, rel.sel,
+                                           specs, 128)
+        cols = [self._coerce_out(c, f) for c, f in zip(outs, self.schema.fields)]
+        return DeviceRelation(self.schema, tuple(cols), out_sel)
 
     @staticmethod
     def _coerce_out(c: DeviceColumn, f: Field) -> DeviceColumn:
@@ -464,33 +527,29 @@ class AggregateExec(PhysicalPlan):
 
     def _dense_transform(self, rel: DeviceRelation, sizes, ngroups,
                          global_one_row=False) -> DeviceRelation:
-        group_cols = [eval_expr(g, rel) for g in self.group_exprs]
-        arg_cols, _, specs = self._prepare(rel)
+        group_cols, arg_cols, filter_cols, specs = self._prepare(rel)
         seg, strides = self.dense_seg(group_cols, rel.sel, sizes, ngroups)
 
         pairs = []
         slots = {}  # spec index -> ("count", None) | (fname, pair index)
         for i, (spec, afn) in enumerate(zip(specs, self._agg_fns())):
-            fac = None
-            if spec.filter is None and not spec.distinct:
-                if spec.fname in ("count", "count_star") and (
-                        spec.arg is None or arg_cols[spec.arg].validity is None):
+            if spec.filter is not None or spec.distinct:
+                continue
+            if spec.fname in ("count", "count_star"):
+                if spec.arg is None or arg_cols[spec.arg].validity is None:
                     slots[i] = ("count", None)
-                    continue
-                if spec.fname in ("sum", "avg") and afn.args:
-                    fac = self._i32_factors(afn.args[0], rel)
-            if fac is None:
-                raise NotImplementedError(
-                    f"aggregate {afn.name()} does not factor into the dense "
-                    f"kernel; its general reduction (ops/groupby._reduce_one) "
-                    f"is not ported yet ({_GROUPING_ITEM})")
-            slots[i] = (spec.fname, len(pairs))
-            pairs.append((self._kernel_factor(fac[0]),
-                          None if fac[1] is None else self._kernel_factor(fac[1])))
+                continue
+            if spec.fname in ("sum", "avg") and afn.args:
+                fac = self._i32_factors(afn.args[0], rel)
+                if fac is not None:
+                    slots[i] = (spec.fname, len(pairs))
+                    pairs.append((self._kernel_factor(fac[0]),
+                                  None if fac[1] is None
+                                  else self._kernel_factor(fac[1])))
 
         if slots:
             sums, counts = DA.dense_groupby_sums(seg, rel.sel, pairs, ngroups)
-        else:  # group keys only (SELECT DISTINCT-like GROUP BY)
+        else:  # no aggregate the kernel takes: counts for out_sel only
             counts = K.segment_count(seg, rel.sel, ngroups)
         # a global (no GROUP BY) aggregate emits its one row even over empty
         # input (count=0, sums NULL) -- SQL semantics, unlike grouped output
@@ -498,8 +557,15 @@ class AggregateExec(PhysicalPlan):
                    if global_one_row else counts > 0)
         has_rows = (counts > 0) & out_sel
         out_keys = self.dense_keys(group_cols, sizes, strides, ngroups)
+        is_start = torch.zeros(rel.capacity, dtype=torch.bool, device=rel.device)
         out_aggs = []
         for i, spec in enumerate(specs):
+            if i not in slots:
+                # the general reduction over the dense ids (scatters)
+                out_aggs.append(G._reduce_one(
+                    spec, arg_cols, filter_cols, rel.sel, seg, is_start, None,
+                    ngroups, counts, out_sel))
+                continue
             kind, j = slots[i]
             if kind == "count":
                 out_aggs.append(DeviceColumn(counts, None, T.INT64))
@@ -525,23 +591,64 @@ class AggregateExec(PhysicalPlan):
         return DeviceRelation(self.schema, tuple(cols), out_sel)
 
     def execute(self, ctx: ExecContext) -> DeviceRelation:
+        self._check_ported()
         rel = self.input.execute(ctx)
         if not self.group_exprs:
-            if not self._global_dense_ok(rel):
-                raise NotImplementedError(
-                    f"global aggregate {self._line()} has no sum/avg that "
-                    f"factors into the dense kernel; the general global "
-                    f"reduction (ops/groupby.global_aggregate) is not ported "
-                    f"yet ({_GROUPING_ITEM})")
-            return self._timed(ctx, self._dense_transform, rel, [], 1, True)
+            if self._global_dense_ok(rel):
+                return self._timed(ctx, self._dense_transform, rel, [], 1, True)
+            return self._timed(ctx, self._global, rel)
         dense = self._dense_sizes(rel)
-        if dense is None:
-            raise NotImplementedError(
-                f"{self._line()}: the group keys have no small static domain; "
-                f"sort-based grouping is not ported yet ({_GROUPING_ITEM})")
-        sizes, ngroups = dense
-        return self._timed(ctx, self._dense_transform, rel, sizes, ngroups)
+        if dense is not None:
+            sizes, ngroups = dense
+            return self._timed(ctx, self._dense_transform, rel, sizes, ngroups)
+        return self._timed(ctx, self._sorted, rel)
+
+    def _sorted(self, rel: DeviceRelation) -> DeviceRelation:
+        """The sort path: one host read of the group count sizes the output;
+        the capacity bucket only grows across runs of this plan."""
+        states, specs = self._phase_sort(rel)
+        num_groups = int(states[0][-1])
+        cap = max(bucket_capacity(max(num_groups, 1)), getattr(self, "_last_cap", 0))
+        self._last_cap = cap
+        out_keys, out_aggs, out_sel = G.phase_reduce_multi(states, specs, cap)
+        cols = [self._coerce_out(c, f)
+                for c, f in zip(list(out_keys) + list(out_aggs), self.schema.fields)]
+        return DeviceRelation(self.schema, tuple(cols), out_sel)
 
     def _line(self):
         return (f"AggregateExec: group=[{', '.join(e.name() for e in self.group_exprs)}] "
                 f"aggs=[{', '.join(e.name() for e in self.agg_exprs)}]")
+
+
+class DistinctExec(PhysicalPlan):
+    """SELECT DISTINCT: sort rows by every column; the first row of each run
+    survives. Emits rows ascending by its columns, NULLs last."""
+
+    def __init__(self, input: PhysicalPlan):
+        self.input = input
+        self.schema = input.schema
+
+    def children(self):
+        return (self.input,)
+
+    def _transform(self, rel: DeviceRelation) -> DeviceRelation:
+        keys = [(c.data, c.validity, False, False, c.sort_bounds())
+                for c in rel.columns]
+        payload = []
+        for c in rel.columns:
+            payload.append(c.data)
+            if c.validity is not None:
+                payload.append(c.validity)
+        sorted_payload, ssel = K.sort_rows(keys, payload, rel.sel)
+        cols = []
+        it = iter(sorted_payload)
+        for c in rel.columns:
+            data = next(it)
+            validity = next(it) if c.validity is not None else None
+            cols.append(DeviceColumn(data, validity, c.dtype, c.dictionary))
+        _, is_start, _ = K.segments_from_sorted_keys(
+            [c.data for c in cols], [c.validity for c in cols], ssel)
+        return DeviceRelation(self.schema, tuple(cols), is_start)
+
+    def execute(self, ctx: ExecContext) -> DeviceRelation:
+        return self._timed(ctx, self._transform, self.input.execute(ctx))

@@ -1,21 +1,21 @@
 """Physical planner: LogicalPlan -> PhysicalPlan.
 
 Port of datafusion_tpu/physical/planner.py for the node kinds this package
-executes: scans, filters, projections, aggregates, sorts, limits and
-aliases. Every other node kind raises NotImplementedError naming the ROADMAP
+executes: scans, filters, projections, aggregates, DISTINCT, sorts, limits
+and aliases. Every other node kind raises NotImplementedError naming the ROADMAP
 item that ports it, so an unsupported query fails at planning time instead
 of returning a wrong answer."""
 from __future__ import annotations
 
 from ..common.errors import PlanError
 from ..data.device import DeviceRelation
+from ..expr import nodes as E
 from ..logical import plan as L
 from . import plan as P
 
 # logical node kind -> the ROADMAP item (queue 1) that ports its operator
 _NOT_PORTED = {
     L.Join: "item 6 'Joins'",
-    L.Distinct: "item 5 'ops/groupby.py -- sort-based grouping'",
     L.Window: "item 8 'physical/window.py'",
     L.Unnest: "item 9 'Function and nested-type breadth'",
     L.Union: "item 12 'Remaining surface'",
@@ -92,6 +92,11 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
         return P.LimitExec(child(plan.input), plan.skip, plan.fetch)
     if isinstance(plan, L.SubqueryAlias):
         return AliasExec(child(plan.input), plan.schema)
+    if isinstance(plan, L.Distinct):
+        _reject_list_keys([E.Column(f.name, f.qualifier)
+                           for f in plan.input.schema.fields],
+                          plan.input.schema, "DISTINCT")
+        return P.DistinctExec(_maybe_compact(child(plan.input)))
     for kind, item in _NOT_PORTED.items():
         if isinstance(plan, kind):
             raise NotImplementedError(

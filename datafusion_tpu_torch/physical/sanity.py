@@ -63,7 +63,7 @@ def _walk(p: P.PhysicalPlan, errors: List[str]) -> None:
         if p.schema != p.input.schema:
             errors.append(f"{name}: schema must equal input schema")
         _check_exprs([p.predicate], p.input.schema, name, errors)
-    elif isinstance(p, (P.LimitExec, P.CompactExec)):
+    elif isinstance(p, (P.LimitExec, P.DistinctExec, P.CompactExec)):
         if p.schema != p.input.schema:
             errors.append(f"{name}: schema must equal input schema")
     elif isinstance(p, P.SortExec):

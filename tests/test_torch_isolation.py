@@ -22,6 +22,7 @@ VERBATIM = [
     "optimizer/pushdown.py", "optimizer/simplify.py", "data/column.py",
     "data/table.py", "models/tpch/datagen.py", "models/tpch/queries.py",
     "models/tpch/queries_ref.py", "models/tpch/compare.py",
+    "models/h2o/datagen.py", "models/h2o/queries.py",
 ]
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|datafusion_tpu)\b(?!_torch)", re.M)

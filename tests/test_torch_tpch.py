@@ -1,7 +1,8 @@
 """TPC-H Q1 and Q6 through the port's SessionContext(device="cpu") against the
 JAX package's SessionContext at SF 0.01 (frames_diff: integers, decimals and
 strings exact, floats to rtol 1e-6 / atol 1e-4 because summation order
-differs), plus the operators and planner paths around them. A query the port
+differs), plus the operators and planner paths around them: dense, sorted
+and global aggregates, DISTINCT. A query the port
 cannot run yet must raise NotImplementedError, never answer wrongly."""
 import numpy as np
 import pytest
@@ -97,6 +98,17 @@ def test_main_path_goes_through_dense_groupby_sums(sessions, monkeypatch):
     # string comparisons against literals outside the column's dictionary
     ("select count(*) c, sum(l_quantity) q from lineitem "
      "where l_returnflag = 'R' and l_shipmode < 'RAIL' and l_linestatus <> 'X'", True),
+    # a global aggregate no kernel pair factors: global_aggregate
+    ("select min(l_quantity) from lineitem", True),
+    # a high-cardinality key: sort-based grouping
+    ("select l_orderkey, sum(l_quantity) from lineitem group by l_orderkey", False),
+    # max beside the dense ids: _reduce_one on the dense path
+    ("select l_returnflag, max(l_tax) from lineitem group by l_returnflag", False),
+    ("select count(distinct l_returnflag) from lineitem", True),
+    ("select distinct l_returnflag, l_linestatus from lineitem", False),
+    # the sort path emits groups ascending by key: the ORDER BY is elided
+    ("select l_orderkey, min(l_shipdate) m, count(*) c from lineitem "
+     "group by l_orderkey order by l_orderkey limit 20", True),
 ])
 def test_more_queries_match_jax(sessions, sql, ordered):
     jctx, pctx, _ = sessions
@@ -107,10 +119,7 @@ def test_more_queries_match_jax(sessions, sql, ordered):
 
 @pytest.mark.parametrize("sql", [
     query(3, SF),  # a join
-    "select min(l_quantity) from lineitem",  # no kernel-factorable aggregate
-    "select l_orderkey, sum(l_quantity) from lineitem group by l_orderkey",  # sort-based
-    "select l_returnflag, max(l_tax) from lineitem group by l_returnflag",
-    "select count(distinct l_returnflag) from lineitem",
+    "select sqrt(l_quantity) from lineitem",  # scalar functions but power/pow
     "select l_comment from lineitem where l_comment like '%ab%'",
 ])
 def test_unported_queries_raise(sessions, sql):
@@ -125,6 +134,14 @@ def test_explain_lists_the_port_plan(sessions):
     assert "CompactExec" in text
     tree = sessions[1].sql(query(6, SF)).explain(format="tree")
     assert "└── AggregateExec: group=[]" in tree
+
+
+def test_sorted_aggregate_and_distinct_count_as_sorted(sessions):
+    for sql in ("select l_orderkey, count(*) c from lineitem group by l_orderkey "
+                "order by l_orderkey",
+                "select distinct l_returnflag from lineitem order by l_returnflag"):
+        text = "\n".join(sessions[1].sql("explain " + sql).to_pydict()["plan"])
+        assert "(presorted)" in text, text
 
 
 def test_operator_spans_and_metrics(sessions):

@@ -25,7 +25,21 @@ order, it:
      first design, its plain version, one PyTorch library call computing the
      same function, and its bound (bytes the data needs / the card's memory
      rate), then times warm Q1 and Q6 end to end;
-  6. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
+  6. runs all 22 TPC-H queries at --sf through the same API -- joins on
+     every path (direct, sort-merge, semi/anti, minmax, outer with residual,
+     one-row cross joins), LIKE, CASE, IN, extract and substring -- each
+     checked against the pandas oracle with frames_diff, and prints for each
+     query the path of every JoinExec, the kernel's launches with their G
+     and route (launch counts reset just before the query, read just
+     after), the host synchronisations of one warm collect() (counted by
+     torch.cuda.set_sync_debug_mode), the host time of the LIKE and
+     substring work over dictionaries with their table copies, warm times
+     as in 5, and one profile
+     (device busy, idle share, op families: sort, searchsorted, gather,
+     scatter, cumsum, copy); fails unless the kernel ran in Q4, Q11, Q15
+     and Q17; holds the kernel against its plain version, bit for bit, at
+     every new shape the queries gave it and times it there as in 5;
+  7. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
      K = 100, seed 42) and runs groupby q1-q7, q9 and q10 through the same
      API -- the second main path -- each checked against a pandas oracle on
      the same table (floats to rtol 1e-9 / atol 1e-9, the rest exact) with
@@ -36,7 +50,7 @@ order, it:
      and times it there as in 5; times each query warm and profiles it once
      (device busy, idle share, top device ops, and the sort path's sorts,
      gathers, cumulative sums and scatters);
-  7. prints a {"kernels": [...]} line, the card's name and power limit, and,
+  8. prints a {"kernels": [...]} line, the card's name and power limit, and,
      last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA device it exits with code 2 at once.
@@ -45,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import os
 import re
@@ -52,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -59,13 +75,15 @@ import torch
 from datafusion_tpu_torch import Schema, SessionContext, Table
 from datafusion_tpu_torch.models.h2o.datagen import generate_groupby
 from datafusion_tpu_torch.models.h2o.queries import GROUPBY_QUERIES
-from datafusion_tpu_torch.models.tpch.compare import frames_diff
+from datafusion_tpu_torch.models.tpch import queries_ref
+from datafusion_tpu_torch.models.tpch.compare import LIMIT_QUERIES, frames_diff
 from datafusion_tpu_torch.models.tpch.datagen import generate_tpch
 from datafusion_tpu_torch.models.tpch.queries import query
 from datafusion_tpu_torch.models.tpch.queries_ref import ref_query
 from datafusion_tpu_torch.ops import cuda_build
 from datafusion_tpu_torch.ops import dense_agg as DA
 from datafusion_tpu_torch.ops import kernels as K
+from datafusion_tpu_torch.physical import functions as F
 from datafusion_tpu_torch.physical import plan as P
 
 # H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound
@@ -346,17 +364,18 @@ def compare_kernel(dev) -> float:
 # ---------------------------------------------------------------------------
 
 
-# the lineitem columns Q1's and Q6's pandas oracle reads
-ORACLE_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
-                  "l_returnflag", "l_linestatus", "l_shipdate")
-
-
-def oracle_lineitem(lineitem: Table):
-    """lineitem as pandas, only the columns the oracle reads (converting the
-    comment strings of 6M rows would cost most of a minute)."""
-    idx = [lineitem.schema.index_of(c) for c in ORACLE_COLUMNS]
-    return Table(Schema([lineitem.schema.fields[i] for i in idx]),
-                 [lineitem.columns[i] for i in idx]).to_pandas()
+def oracle_tables(tables: dict) -> dict:
+    """Every TPC-H table as pandas, with only the columns the pandas oracle
+    names (converting lineitem's comment strings, 6M rows at SF 1, would
+    cost most of a minute)."""
+    src = inspect.getsource(queries_ref)
+    out = {}
+    for name, t in tables.items():
+        idx = [i for i, f in enumerate(t.schema.fields)
+               if re.search(rf"\b{f.name}\b", src)]
+        out[name] = Table(Schema([t.schema.fields[i] for i in idx]),
+                          [t.columns[i] for i in idx]).to_pandas()
+    return out
 
 
 class RecordKernelInputs:
@@ -468,7 +487,10 @@ def baseline_call(lib):
             a_ptr, a_bytes, b_ptr, b_bytes, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"first-design kernel launch failed: CUDA error {err}")
-        return out[:, :len(pairs)], out[:, len(pairs)]
+        # a call without pairs returns one zero column of sums, as the
+        # engine's wrapper does
+        sums = out[:, :len(pairs)] if pairs else torch.zeros_like(out)
+        return sums, out[:, len(pairs)]
     return call
 
 
@@ -577,8 +599,10 @@ def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
             "collect_ms_in_turns": turns}
 
 
-# device-op families of the sort path, matched in order on kernel names
+# device-op families of the sort and join paths, matched in order on kernel
+# names ("searchsorted" before "sort", which it contains)
 OP_FAMILIES = (("dense_groupby_sums", ("dgs_",)),
+               ("searchsorted", ("searchsorted",)),
                ("sort", ("sort", "Sort")),
                ("scatter", ("scatter", "indexFunc", "index_add")),
                ("gather", ("index_elementwise", "gather", "index_kernel")),
@@ -643,7 +667,115 @@ def profile_query(ctx, label: str, sql: str, expect=()) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 6. the h2o.ai groupby suite
+# 6. all 22 TPC-H queries
+# ---------------------------------------------------------------------------
+
+# the queries where the reference calls its Pallas kernel (SF 0.01): each
+# must launch the kernel here too
+TPCH_KERNEL_QUERIES = (4, 11, 15, 17)
+
+
+def join_paths(df) -> list:
+    """The path each JoinExec of the DataFrame's plan took in its last run."""
+    out, stack = [], [df.physical_plan()]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, P.JoinExec):
+            out.append(p.path)
+        stack.extend(p.children())
+    return out
+
+
+class RecordDictionaryWork:
+    """Host time of every call that works over a string column's dictionary
+    and copies its lookup table to the card: LIKE (F.dict_predicate) and
+    substring (F.transform_dictionary)."""
+
+    NAMES = {"like": "dict_predicate", "substring": "transform_dictionary"}
+
+    def __enter__(self):
+        self.ms = {k: [] for k in self.NAMES}
+        self._orig = {k: getattr(F, n) for k, n in self.NAMES.items()}
+
+        def timed(kind):
+            def call(col, fn):
+                t0 = time.perf_counter()
+                out = self._orig[kind](col, fn)
+                self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+
+        for kind, name in self.NAMES.items():
+            setattr(F, name, timed(kind))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, name in self.NAMES.items():
+            setattr(F, name, self._orig[kind])
+
+
+def host_syncs(df) -> int:
+    """Host synchronisations of one warm collect(), as
+    torch.cuda.set_sync_debug_mode("warn") reports them (the result's
+    copies to the host included)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            df.collect()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def run_tpch22(ctx, frames, sf: float, repeat: int) -> dict:
+    """All 22 TPC-H queries once each through the public API, checked
+    against the pandas oracle, then timed warm and profiled. Returns {qid:
+    (launches, recorded kernel calls)}."""
+    out = {}
+    for qid in range(1, 23):
+        sql = query(qid, sf)
+        df = ctx.sql(sql)
+        DA.reset_launches()
+        with RecordKernelInputs() as rec, RecordDictionaryWork() as dwork:
+            t0 = time.perf_counter()
+            got = df.collect()
+            secs = time.perf_counter() - t0
+        launches = DA.launches
+        t0 = time.perf_counter()
+        ref = ref_query(qid, frames, sf)
+        oracle_s = time.perf_counter() - t0
+        diff = frames_diff(got.to_pandas(), ref, ordered=qid in LIMIT_QUERIES)
+        check(diff is None, f"TPC-H Q{qid} differs from the pandas oracle: {diff}")
+        check(launches == len(rec.calls), f"TPC-H Q{qid}: {len(rec.calls)} calls "
+                                          f"but {launches} launches")
+        if qid in TPCH_KERNEL_QUERIES:
+            check(launches > 0, f"TPC-H Q{qid} never launched dense_groupby_sums")
+        paths = join_paths(df)
+        check(all(paths), f"TPC-H Q{qid}: a JoinExec recorded no path: {paths}")
+        emit({"tpch_query": f"q{qid}", "sf": sf, "rows": got.num_rows,
+              "first_run_s": secs, "oracle_s": oracle_s, "join_paths": paths,
+              "kernel_launches": launches,
+              "kernel_calls": [{"G": G, "pairs": len(pairs),
+                                "route": DA.kernel_route(G, len(DA.distinct_pairs(pairs)[0]))}
+                               for _, _, pairs, G in rec.calls],
+              "dictionary_host_ms": dwork.ms, "matches_oracle": True})
+        out[qid] = (launches, rec.calls)
+    for qid in range(1, 23):
+        sql = query(qid, sf)
+        df, timing = warm_timing(ctx, sql, repeat)
+        with RecordDictionaryWork() as dwork:
+            syncs = host_syncs(df)
+        emit({"tpch_timing": f"q{qid}", "host_syncs": syncs,
+              "dictionary_host_ms": dwork.ms, **timing})
+        emit(profile_query(ctx, f"tpch_q{qid}", sql,
+                           expect=("dense_groupby_sums",) if out[qid][0] else ()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. the h2o.ai groupby suite
 # ---------------------------------------------------------------------------
 
 H2O_K = 100
@@ -895,11 +1027,11 @@ def main() -> int:
     check(ctx.device.type == "cuda", f"session device is {ctx.device}")
     for name, table in tables.items():
         ctx.register_table(name, table)
-    pdt = {"lineitem": oracle_lineitem(tables["lineitem"])}
+    frames = oracle_tables(tables)
     emit({"datagen_s": time.perf_counter() - t0,
-          "lineitem_rows": tables["lineitem"].num_rows})
+          "rows": {name: t.num_rows for name, t in tables.items()}})
 
-    main_path = run_main_path(ctx, pdt, args.sf)
+    main_path = run_main_path(ctx, frames, args.sf)
     launches = sum(n for n, _ in main_path.values())
 
     shapes = {}
@@ -914,6 +1046,22 @@ def main() -> int:
     for qid in (1, 6):
         emit(profile_query(ctx, f"q{qid}", query(qid, args.sf),
                            expect=("dense_groupby_sums",)))
+
+    tpch = run_tpch22(ctx, frames, args.sf, args.repeat)
+    launches += sum(n for n, _ in tpch.values())
+    seen = {(int(c[0].shape[0]), c[3], len(c[2])) for _, calls in main_path.values()
+            for c in calls}
+    for qid, (n, calls) in tpch.items():
+        for call in calls:
+            shape = (int(call[0].shape[0]), call[3], len(call[2]))
+            if shape in seen:
+                continue
+            seen.add(shape)
+            t = kernel_timing(call, args.iters, flush, baseline)
+            t["launches_per_query"] = n
+            label = f"tpch_q{qid}_G{call[3]}"
+            shapes[label] = t
+            emit({"kernel_timing": KERNEL["name"], "shape": label, **t})
 
     check_segment_extremes(dev)
     t0 = time.perf_counter()

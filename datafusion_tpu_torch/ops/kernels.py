@@ -8,7 +8,11 @@ ops:
 * `compaction_indices` -- the first `cap` live row indices, ascending;
 * `segments_from_sorted_keys` -- group boundaries and dense segment ids of
   rows sorted by their group keys;
-* masked segment reductions (sum, count, min, max) over dense group ids.
+* masked segment reductions (sum, count, min, max) over dense group ids;
+* the equi-join core: `canonical_ids_two_sided` (exact dense ids for
+  composite keys across both sides), `pack_join_keys`, `join_match_counts`
+  (build side sorted by id, probes located with `torch.searchsorted`) and
+  `join_expand` (output slot -> (probe row, build row)).
 
 Every sort is stable (`torch.sort(..., stable=True)`), as every reference
 sort is. Segment ids at or beyond the segment count are dropped, as
@@ -17,6 +21,10 @@ sort is. Segment ids at or beyond the segment count are dropped, as
 that is sliced off. Segment min/max start from the reduction's identity
 and scatter with `include_self=False`: torch's `scatter_reduce_` would
 otherwise fold the starting value into every segment.
+
+Dead and NULL-keyed join rows never match, and no key value is reserved to
+mark them: the build side's liveness is counted beside its sorted keys, so a
+live key equal to INT64_MIN or INT64_MAX joins like any other.
 """
 from __future__ import annotations
 
@@ -246,3 +254,154 @@ def segment_min(values: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
 def segment_max(values: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     return _segment_extreme(values, seg, mask, num_segments, True)
+
+
+# ---------------------------------------------------------------------------
+# key canonicalization (exact dense ids for composite / string keys)
+# ---------------------------------------------------------------------------
+
+
+def canonical_ids_two_sided(
+    left_keys: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+    right_keys: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+    left_sel: torch.Tensor,
+    right_sel: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Identical dense int32 ids for identical composite keys across two
+    relations (exact, no hash collisions). SQL join semantics: rows with any
+    NULL key, and dead rows, never match; they get id -1.
+
+    Returns (left_ids, right_ids)."""
+    nl = left_sel.shape[0]
+    datas = []
+    joinable = torch.cat([left_sel, right_sel])
+    for (lk, lv), (rk, rv) in zip(left_keys, right_keys):
+        rk = rk.to(lk.dtype) if rk.dtype != lk.dtype else rk
+        datas.append(torch.cat([lk, rk]))
+        if lv is not None or rv is not None:
+            lvv = lv if lv is not None else torch.ones_like(left_sel)
+            rvv = rv if rv is not None else torch.ones_like(right_sel)
+            joinable = joinable & torch.cat([lvv, rvv])
+    # stable sort by (not joinable, keys...): unjoinable rows sink
+    perm = sort_permutation([(d, None, False, False) for d in datas], joinable)
+    sorted_joinable = joinable[perm]
+    seg, _, _ = segments_from_sorted_keys([d[perm] for d in datas],
+                                          [None] * len(datas), sorted_joinable)
+    seg = torch.where(sorted_joinable, seg, -1)
+    ids = torch.empty_like(seg)
+    ids[perm] = seg  # perm is a permutation: every slot written once
+    return ids[:nl], ids[nl:]
+
+
+# ---------------------------------------------------------------------------
+# searchsorted-based equi-join core
+# ---------------------------------------------------------------------------
+
+
+def pack_join_keys(
+    keys: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+    sel: torch.Tensor,
+) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Composite integer keys as one int64 id without sorting: one integer
+    key of any width, or two 32-bit-safe integer keys packed as
+    (a + 2^31) * 2^32 + (b + 2^31). Returns (ids, live) or None."""
+    live = sel
+    for data, validity in keys:
+        if not is_integer(data):
+            return None
+        if validity is not None:
+            live = live & validity
+    if len(keys) == 1:
+        return keys[0][0].to(torch.int64), live
+    if len(keys) == 2 and all(k[0].element_size() <= 4 for k in keys):
+        a = keys[0][0].to(torch.int64) + (1 << 31)
+        b = keys[1][0].to(torch.int64) + (1 << 31)
+        return a * (1 << 32) + b, live
+    return None
+
+
+def sorted_live_ranks(keys: torch.Tensor, live: torch.Tensor):
+    """Sort `keys` with dead rows after every live one, and count liveness
+    beside the key order. Returns (perm, sorted_keys, live_before):
+      perm         -- row indices, live rows first, each part stably by key
+                      (the reference's stable sort by (dead, key));
+      sorted_keys  -- every row's key, ascending (live and dead mixed);
+      live_before  -- int64 [n + 1]: live rows among the first i of
+                      sorted_keys.
+    The live rows with key < q are then live_before[searchsorted(
+    sorted_keys, q)], and they are perm[:that] among the live prefix: no key
+    value stands for "dead", so the whole int64 domain stays usable."""
+    order = torch.sort(keys, stable=True).indices
+    live_s = live[order].to(torch.int64)
+    cum = torch.cumsum(live_s, 0)
+    live_before = torch.cat([cum.new_zeros(1), cum])
+    n_live = live_before[-1]
+    before = cum - live_s
+    dead_before = torch.arange(keys.shape[0], device=keys.device) - before
+    dest = torch.where(live_s > 0, before, n_live + dead_before)
+    perm = torch.empty_like(order)
+    perm[dest] = order  # dest is a permutation: every slot written once
+    return perm, keys[order], live_before
+
+
+def join_match_counts(
+    build_ids: torch.Tensor,
+    build_live: torch.Tensor,
+    probe_ids: torch.Tensor,
+    probe_live: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Phase 1 of the equi-join: sort the build side by id, locate each
+    probe's match run with torch.searchsorted.
+
+    ids are int64 over the full domain; dead/NULL rows are excluded by the
+    live masks, never by a sentinel id. Returns (perm, lo, cnt, total):
+      perm:   build row indices sorted by id, live rows first;
+      lo[i]:  first position in perm matching probe row i;
+      cnt[i]: number of matches of probe row i (0 for dead/NULL probes);
+      total:  sum(cnt), a 0-d int64 tensor (on the device)."""
+    perm, skeys, live_before = sorted_live_ranks(build_ids.to(torch.int64),
+                                                 build_live)
+    q = probe_ids.to(torch.int64).contiguous()
+    lo = live_before[torch.searchsorted(skeys, q, right=False)]
+    hi = live_before[torch.searchsorted(skeys, q, right=True)]
+    cnt = torch.where(probe_live, hi - lo, 0).to(torch.int32)
+    return perm, lo, cnt, cnt.sum(dtype=torch.int64)
+
+
+def join_match_counts_small(
+    build_ids: torch.Tensor,
+    build_live: torch.Tensor,
+    probe_ids: torch.Tensor,
+    probe_live: torch.Tensor,
+    domain: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """join_match_counts for ids in a proven dense domain [0, domain). The
+    reference packs liveness into the key there to get single-key TPU
+    sorts; with searchsorted the general path already sorts one key, so
+    this only clamps the ids of dead rows (padding garbage) into the
+    domain. Same contract."""
+    bid = torch.clamp(build_ids.to(torch.int64), 0, domain - 1)
+    pid = torch.clamp(probe_ids.to(torch.int64), 0, domain - 1)
+    return join_match_counts(bid, build_live, pid, probe_live)
+
+
+def join_expand(
+    perm: torch.Tensor,
+    lo: torch.Tensor,
+    cnt: torch.Tensor,
+    out_capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Phase 2: (probe_row, build_row, out_valid) for each output slot.
+    Slot j belongs to probe row p where offsets[p] <= j < offsets[p] +
+    cnt[p] (offsets: exclusive prefix sum of cnt), found by searchsorted;
+    slots are ordered by probe row, then by the build rows' order in perm."""
+    j = torch.arange(out_capacity, dtype=torch.int64, device=cnt.device)
+    n, nb = cnt.shape[0], perm.shape[0]
+    c64 = cnt.to(torch.int64)
+    ends = torch.cumsum(c64, 0)
+    offsets = ends - c64
+    probe_row = torch.clamp(torch.searchsorted(offsets, j, right=True) - 1, 0, n - 1)
+    match_idx = j - offsets[probe_row]
+    out_valid = j < ends[-1]
+    pos = torch.clamp(lo[probe_row].to(torch.int64) + match_idx, 0, nb - 1)
+    return probe_row, perm[pos], out_valid

@@ -8,10 +8,11 @@ index tensors on the relation's device.
 
 Ported: columns, literals, aliases, sort keys, numeric/decimal/temporal
 casts, negation, NOT, IS NULL, binary operators (logic, comparison,
-arithmetic, decimal and date arithmetic), BETWEEN, interval bounds
+arithmetic, decimal and date arithmetic), BETWEEN, IN lists, LIKE (a host
+regex over the dictionary, gathered per row), CASE, interval bounds
 propagation and predicates, and the scalar functions physical/functions.py
-has. LIKE, CASE, IN lists, the other scalar functions and casts to or from
-strings are not ported yet and raise NotImplementedError.
+has. The other scalar functions and casts to or from strings are not ported
+yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -83,6 +84,46 @@ def _translate_codes(col: DeviceColumn, mapping: np.ndarray,
     lut = torch.from_numpy(mapping).to(col.data.device)
     codes = lut[col.data.clamp(0, len(mapping) - 1).long()]
     return DeviceColumn(codes, col.validity, t, merged)
+
+
+def unify_many_string_columns(cols):
+    """Re-encode string columns onto one merged dictionary (n-way)."""
+    dicts = [c.dictionary for c in cols]
+    ids = {id(d) for d in dicts if d is not None}
+    if len(ids) <= 1 and all(d is not None for d in dicts):
+        return list(cols)
+    uniq = []
+    seen = set()
+    for d in dicts:
+        if d is not None and id(d) not in seen:
+            seen.add(id(d))
+            uniq.append(d)
+    from ..data.column import as_text_array, is_bytes_values
+
+    if any(is_bytes_values(d.values) for d in uniq):
+        mlist = sorted({bytes(v) for d in uniq for v in d.values})
+        lut = {v: i for i, v in enumerate(mlist)}
+        merged = Dictionary(np.array(mlist, dtype=object))
+        maps = {id(d): np.array([lut[bytes(v)] for v in d.values],
+                                dtype=np.int32) for d in uniq}
+    else:
+        vals = [as_text_array(d.values) for d in uniq if len(d.values)]
+        merged_np = (np.unique(np.concatenate(vals)) if vals
+                     else np.array([], "U1"))
+        merged = Dictionary(merged_np.astype(object))
+        maps = {}
+        for d in uniq:
+            dv = (as_text_array(d.values) if len(d.values)
+                  else np.array([], merged_np.dtype))
+            maps[id(d)] = np.searchsorted(merged_np, dv).astype(np.int32)
+    out = []
+    for c in cols:
+        if c.dictionary is None:
+            out.append(DeviceColumn(torch.zeros_like(c.data), c.validity,
+                                    T.STRING, merged))
+        else:
+            out.append(_translate_codes(c, maps[id(c.dictionary)], merged))
+    return out
 
 
 def unify_string_columns(l: DeviceColumn, r: DeviceColumn
@@ -455,10 +496,69 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
 
         if active_registry().scalar(e.fname) is not None:
             raise _not_ported(f"scalar UDF {e.fname!r}")
-        return F.eval_scalar_function(e.fname, [eval_expr(a, rel) for a in e.args])
-    if isinstance(e, (E.InList, E.Like, E.Case)):
-        raise _not_ported(f"{type(e).__name__} ({e.name()})")
+        return F.eval_scalar_function(e.fname, [eval_expr(a, rel) for a in e.args],
+                                      e.args)
+    if isinstance(e, E.InList):
+        c = eval_expr(e.expr, rel)
+        acc = None
+        for v in e.values:
+            eq = eval_binary(E.BinaryOp(E.Op.EQ, e.expr, v), c, eval_expr(v, rel), schema)
+            acc = eq if acc is None else eval_binary(
+                E.BinaryOp(E.Op.OR, e.expr, v), acc, eq, schema)
+        if acc is None:
+            return DeviceColumn(torch.zeros(cap, dtype=torch.bool, device=rel.device),
+                                None, T.BOOL)
+        return DeviceColumn(~acc.data if e.negated else acc.data, acc.validity, T.BOOL)
+    if isinstance(e, E.Like):
+        from . import functions as F
+
+        c = eval_expr(e.expr, rel)
+        if not isinstance(e.pattern, E.Literal):
+            raise PlanError("LIKE pattern must be a literal")
+        data = F.eval_like(c, str(e.pattern.value), e.case_insensitive)
+        return DeviceColumn(~data if e.negated else data, c.validity, T.BOOL)
+    if isinstance(e, E.Case):
+        return _eval_case(e, rel)
     raise PlanError(f"cannot evaluate {type(e).__name__} on device: {e!r}")
+
+
+def _eval_case(e: E.Case, rel: DeviceRelation) -> DeviceColumn:
+    """CASE [operand] WHEN ... THEN ... [ELSE ...] END: the first branch
+    whose condition is true (not NULL) wins; no ELSE gives NULL."""
+    from ..expr.typing import infer
+
+    cap = rel.capacity
+    out_t, _ = infer(e, rel.schema)
+
+    def branch_cond(w: E.Expr) -> DeviceColumn:
+        if e.operand is not None:
+            return eval_expr(E.BinaryOp(E.Op.EQ, e.operand, w), rel)
+        return eval_expr(w, rel)
+
+    then_cols = [cast_column(eval_expr(t, rel), out_t, cap) for _, t in e.branches]
+    else_col = (cast_column(eval_expr(e.else_expr, rel), out_t, cap)
+                if e.else_expr is not None else None)
+    dictionary = None
+    if out_t.is_string:
+        allc = then_cols + ([else_col] if else_col is not None else [])
+        unified = unify_many_string_columns(allc)
+        then_cols = unified[: len(then_cols)]
+        else_col = unified[len(then_cols)] if else_col is not None else None
+        dictionary = then_cols[0].dictionary if then_cols else None
+
+    ones = torch.ones(cap, dtype=torch.bool, device=rel.device)
+    if else_col is not None:
+        data, valid = else_col.data, else_col.validity
+    else:
+        data = torch.zeros(cap, dtype=torch_dtype(out_t), device=rel.device)
+        valid = torch.zeros(cap, dtype=torch.bool, device=rel.device)
+    for (w, _), tcol in zip(reversed(e.branches), reversed(then_cols)):
+        cond = branch_cond(w)
+        cmask = cond.data if cond.validity is None else (cond.data & cond.validity)
+        data = torch.where(cmask, tcol.data, data)
+        tvalid = tcol.validity if tcol.validity is not None else ones
+        valid = torch.where(cmask, tvalid, valid if valid is not None else ones)
+    return DeviceColumn(data, valid, out_t, dictionary)
 
 
 def eval_predicate(e: E.Expr, rel: DeviceRelation) -> torch.Tensor:

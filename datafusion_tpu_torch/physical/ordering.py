@@ -4,9 +4,10 @@ Port of datafusion_tpu/physical/ordering.py for the operators this package
 has. Both aggregate paths emit their groups ascending by key (dense codes
 are order-preserving; the sort path sorts by the keys), and DISTINCT its
 rows ascending by every column, so a SortExec over the same keys -- TPC-H
-Q1's ORDER BY -- is planned as presorted and costs nothing. Orderings are
-(schema_index, asc, nulls_first) prefixes over each operator's own output
-schema.
+Q1's ORDER BY -- is planned as presorted and costs nothing. Inner joins
+emit matched rows in probe order, and semi/anti joins mask their probe side.
+Orderings are (schema_index, asc, nulls_first) prefixes over each operator's
+own output schema.
 """
 from __future__ import annotations
 
@@ -57,6 +58,19 @@ def output_ordering(p: P.PhysicalPlan) -> Optional[Ordering]:
                 break
             out.append((mapping[idx], asc, nf))
         return out or None
+    if isinstance(p, P.JoinExec):
+        from ..logical.plan import JoinType
+
+        if p.join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            # output = masked probe relation, order untouched
+            return output_ordering(p.left)
+        if p.join_type in (JoinType.RIGHT_SEMI, JoinType.RIGHT_ANTI):
+            return output_ordering(p.right)
+        if p.join_type is JoinType.INNER:
+            # matched rows are emitted by probe row (residual filters only
+            # mask), so the probe (left) side's ordering survives
+            return output_ordering(p.left)
+        return None
     return None
 
 

@@ -9,10 +9,15 @@ aggregate in one pass of the dense aggregation kernel, ops/dense_agg.py) or
 sort rows by their group keys (ops/groupby.py).
 
 Ported: ScanExec, FilterExec, ProjectionExec, LimitExec, SortExec (with
-fetch = TopK, and the presorted elision), CompactExec, DistinctExec, and
-AggregateExec's global, dense and sort-based paths (ops/groupby.py).
+fetch = TopK, and the presorted elision), CompactExec, DistinctExec,
+AggregateExec's global, dense and sort-based paths (ops/groupby.py), and
+JoinExec (every join type, residual filters; ops/joinimpl.py).
 Aggregates the kernel cannot take (min/max, filtered or DISTINCT aggregates,
 float sums, order statistics) go through ops/groupby._reduce_one.
+
+Data-dependent output sizes take one host read each: a compaction's live
+count, a sorted aggregate's group count, an expanding join's match total,
+and a direct-address join's duplicate flag.
 """
 from __future__ import annotations
 
@@ -27,11 +32,19 @@ from ..common.schema import Field, Schema
 from ..data.device import (DeviceColumn, DeviceRelation, bucket_capacity,
                            is_integer, torch_dtype)
 from ..expr import nodes as E
+from ..logical.plan import JoinType
 from ..ops import dense_agg as DA
 from ..ops import groupby as G
+from ..ops import joinimpl as J
 from ..ops import kernels as K
 from ..runtime.context import ExecContext
-from .expr_compiler import eval_expr, eval_predicate
+from .expr_compiler import eval_expr, eval_predicate, unify_string_columns
+
+
+def _scatter_any(capacity: int, idx: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """out[i] = any(flags[j] for j with idx[j] == i); idx within range."""
+    acc = torch.zeros(capacity, dtype=torch.int32, device=flags.device)
+    return acc.index_add_(0, idx, flags.to(torch.int32)) > 0
 
 
 def _dense_int_offset(c: DeviceColumn) -> Optional[int]:
@@ -652,3 +665,302 @@ class DistinctExec(PhysicalPlan):
 
     def execute(self, ctx: ExecContext) -> DeviceRelation:
         return self._timed(ctx, self._transform, self.input.execute(ctx))
+
+
+class JoinExec(PhysicalPlan):
+    """Equi-join (+ residual filter) for every join type; see
+    ops/joinimpl.py. RIGHT flavours run as the mirrored LEFT ones (probe =
+    the right input). Each execution takes one path, kept in `self.path`:
+      direct           -- INNER/LEFT over a proven-dense key domain whose
+                          build side has unique keys (one host read of the
+                          duplicate flag);
+      sort-merge       -- phase 1 counts matches, one host read of their
+                          total sizes the expansion; `direct-dup` first when
+                          the direct attempt found duplicate build keys;
+      range            -- the same expansion over a single-inequality match;
+      semi-direct      -- SEMI/ANTI existence bitmap over a dense domain;
+      minmax           -- SEMI/ANTI whose residual is one comparison, as a
+                          per-key min/max over a dense domain;
+      semi-sort-merge / semi-range -- SEMI/ANTI from phase-1 counts.
+    Other filtered SEMI/ANTI joins expand (sort-merge / range)."""
+
+    _RANGE_MIRROR = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+    _MINMAX_OPS = {E.Op.LT: "lt", E.Op.LE: "le", E.Op.GT: "gt",
+                   E.Op.GE: "ge", E.Op.NEQ: "neq"}
+    _MINMAX_MIRROR = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le",
+                      "neq": "neq"}
+    DIRECT_DOMAIN_LIMIT = 1 << 26  # max direct-address table slots
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 on: Sequence[Tuple[E.Expr, E.Expr]], join_type: JoinType,
+                 filter: Optional[E.Expr], schema: Schema,
+                 range_on: Optional[Tuple[E.Expr, E.Expr, str]] = None):
+        self.left = left
+        self.right = right
+        self.on = tuple(on)
+        self.join_type = join_type
+        self.filter = filter
+        self.schema = schema
+        # single range predicate `left_expr OP right_expr` driving the
+        # piecewise merge path (ops/joinimpl.range_join_phase1)
+        self.range_on = range_on
+        self._last_co = 0  # expansion capacity: only grows across runs
+        # direct-address state: info -> build side had unique keys when
+        # last tried (a False skips the attempt afterwards)
+        self._direct_ok: Dict = {}
+        self.path: Optional[str] = None
+
+    def children(self):
+        return (self.left, self.right)
+
+    def _swapped(self) -> bool:
+        return self.join_type in (JoinType.RIGHT, JoinType.RIGHT_SEMI,
+                                  JoinType.RIGHT_ANTI)
+
+    def execute(self, ctx: ExecContext) -> DeviceRelation:
+        lplan, rplan = ((self.right, self.left) if self._swapped()
+                        else (self.left, self.right))
+        lrel = lplan.execute(ctx)
+        rrel = rplan.execute(ctx)
+        return self._timed(ctx, self.execute_rels, lrel, rrel)
+
+    def execute_rels(self, lrel: DeviceRelation, rrel: DeviceRelation) -> DeviceRelation:
+        """Run the join over (probe, build) relations, probe = left after
+        RIGHT-flavour mirroring."""
+        jt = self.join_type
+        swapped = self._swapped()
+        if swapped:
+            jt = {JoinType.RIGHT: JoinType.LEFT,
+                  JoinType.RIGHT_SEMI: JoinType.LEFT_SEMI,
+                  JoinType.RIGHT_ANTI: JoinType.LEFT_ANTI}[jt]
+        on = tuple((r, l) for l, r in self.on) if swapped else self.on
+        rng = self.range_on
+        if swapped and rng is not None:
+            rng = (rng[1], rng[0], self._RANGE_MIRROR[rng[2]])
+        keys = info = None
+        if rng is None:
+            keys = self._keys(on, lrel, rrel)
+            if on:
+                info = J.direct_domain(keys[0], keys[1], self.DIRECT_DOMAIN_LIMIT)
+        semi = jt in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI)
+        if semi and self.filter is None:
+            return self._run_semi(lrel, rrel, keys, rng, info, None)
+        if semi and info is not None:
+            mm = self._residual_minmax(lrel, rrel)
+            if mm is not None:
+                return self._run_semi(lrel, rrel, keys, rng, info, mm)
+        return self._run_expand(lrel, rrel, jt, swapped, keys, rng, info)
+
+    @staticmethod
+    def _keys(on, lrel, rrel):
+        """Join key columns of both sides, string keys on one dictionary."""
+        lkeys = [eval_expr(l, lrel) for l, _ in on]
+        rkeys = [eval_expr(r, rrel) for _, r in on]
+        for i in range(len(lkeys)):
+            if lkeys[i].dtype.is_string or rkeys[i].dtype.is_string:
+                lkeys[i], rkeys[i] = unify_string_columns(lkeys[i], rkeys[i])
+        return lkeys, rkeys
+
+    def _residual_minmax(self, lrel, rrel):
+        """(probe_col_expr, build_col_expr, op) when the residual filter is
+        ONE comparison between a probe-side and a build-side column (TPC-H
+        Q21's l2.l_suppkey <> l1.l_suppkey); None otherwise."""
+        f = self.filter
+        if not isinstance(f, E.BinaryOp) or f.op not in self._MINMAX_OPS:
+            return None
+
+        def side(e):
+            if not isinstance(e, E.Column):
+                return None
+            try:
+                inl = lrel.schema.find(e.flat_name) is not None
+            except Exception:  # noqa: BLE001 -- ambiguous name
+                inl = False
+            try:
+                inr = rrel.schema.find(e.flat_name) is not None
+            except Exception:  # noqa: BLE001 -- ambiguous name
+                inr = False
+            if inl == inr:
+                return None
+            return "l" if inl else "r"
+
+        sl, sr = side(f.left), side(f.right)
+        op = self._MINMAX_OPS[f.op]
+        if sl == "l" and sr == "r":
+            return f.left, f.right, op
+        if sl == "r" and sr == "l":
+            return f.right, f.left, self._MINMAX_MIRROR[op]
+        return None
+
+    @staticmethod
+    def _phase1(lrel, rrel, keys, rng):
+        if rng is not None:
+            le, re_, op = rng
+            return J.range_join_phase1(eval_expr(le, lrel), eval_expr(re_, rrel),
+                                       op, lrel.sel, rrel.sel)
+        return J.join_phase1(keys[0], keys[1], lrel.sel, rrel.sel)
+
+    def _run_semi(self, lrel, rrel, keys, rng, info, minmax):
+        """SEMI/ANTI without expansion: existence from a per-key min/max
+        (`minmax`: the residual's one comparison), a dense bitmap, or the
+        phase-1 match counts."""
+        if minmax is not None:
+            pe, be, op = minmax
+            spans, domain = info
+            ex = J.join_exists_minmax(keys[0], keys[1], lrel.sel, rrel.sel,
+                                      spans, domain, eval_expr(pe, lrel),
+                                      eval_expr(be, rrel), op)
+            self.path = "minmax"
+        elif info is not None:
+            spans, domain = info
+            ex = J.join_direct_exists(keys[0], keys[1], lrel.sel, rrel.sel,
+                                      spans, domain)
+            self.path = "semi-direct"
+        else:
+            _, _, cnt, _ = self._phase1(lrel, rrel, keys, rng)
+            ex = cnt > 0
+            self.path = "semi-range" if rng is not None else "semi-sort-merge"
+        anti = self.join_type in (JoinType.LEFT_ANTI, JoinType.RIGHT_ANTI)
+        return DeviceRelation(self.schema, lrel.columns,
+                              lrel.sel & (~ex if anti else ex))
+
+    def _run_expand(self, lrel, rrel, jt, swapped, keys, rng, info):
+        tried = None
+        if jt in (JoinType.INNER, JoinType.LEFT) and info is not None \
+                and self._direct_ok.get(info) is not False:
+            out, dup = self._direct_impl(lrel, rrel, keys, jt, swapped, info)
+            ok = not bool(dup)  # host read
+            self._direct_ok[info] = ok
+            if ok:
+                self.path = "direct"
+                return out
+            tried = "direct-dup"
+        perm, lo, cnt, total = self._phase1(lrel, rrel, keys, rng)
+        co = max(bucket_capacity(max(int(total), 1)), self._last_co)  # host read
+        self._last_co = co
+        path = "range" if rng is not None else "sort-merge"
+        self.path = path if tried is None else f"{tried},{path}"
+        return self._expand_impl(lrel, rrel, perm, lo, cnt, jt, swapped, co)
+
+    def _direct_impl(self, lrel, rrel, keys, jt, swapped, info):
+        """Direct-address INNER/LEFT join: the output keeps the probe's
+        capacity and order. Returns (relation, dup flag)."""
+        spans, domain = info
+        lcols = list(lrel.columns)
+        # INNER output masks unmatched rows through sel: no NULL extension
+        nullx = jt is not JoinType.INNER
+        rcols, matched, dup = J.join_direct_gather(
+            keys[0], keys[1], lrel.sel, rrel.sel, spans, domain,
+            list(rrel.columns), null_unmatched=nullx)
+        block = DeviceRelation(
+            self._block_schema(lrel, rrel, swapped),
+            tuple(rcols + lcols) if swapped else tuple(lcols + rcols), matched)
+        final = matched
+        if self.filter is not None:
+            final = final & eval_predicate(self.filter, block)
+        if jt is JoinType.INNER:
+            return DeviceRelation(self.schema, block.columns, final), dup
+        # LEFT: every live probe row survives; a failed match or residual
+        # NULL-extends the build columns
+        dead_b = ~final
+        rcols2 = []
+        for c in rcols:
+            v = c.validity if c.validity is not None else torch.ones_like(dead_b)
+            ne = dead_b[:, None] if c.data.ndim == 2 else dead_b
+            rcols2.append(DeviceColumn(
+                torch.where(ne, torch.zeros_like(c.data), c.data), v & ~dead_b,
+                c.dtype, c.dictionary, None, c.lengths, c.elem_valid, c.meta))
+        cols = tuple(rcols2 + lcols) if swapped else tuple(lcols + rcols2)
+        return DeviceRelation(self.schema, cols, lrel.sel), dup
+
+    def _expand_impl(self, lrel, rrel, perm, lo, cnt, jt, swapped, co):
+        """Matched pairs (by probe row, then build rows in key order), the
+        residual, then the unmatched probe rows (LEFT/FULL) and unmatched
+        build rows (FULL) as NULL-extended blocks."""
+        probe_row, build_row, out_valid = K.join_expand(perm, lo, cnt, co)
+        lcols = J.gather_columns(list(lrel.columns), probe_row, out_valid)
+        rcols = J.gather_columns(list(rrel.columns), build_row, out_valid)
+        block_schema = self._block_schema(lrel, rrel, swapped)
+        block = DeviceRelation(
+            block_schema,
+            tuple(rcols + lcols) if swapped else tuple(lcols + rcols), out_valid)
+        sel_matched = out_valid
+        if self.filter is not None:
+            sel_matched = sel_matched & eval_predicate(self.filter, block)
+        block = block.with_sel(sel_matched)
+
+        if jt in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            # filtered semi/anti: any passing match per probe row
+            any_pass = _scatter_any(lrel.capacity, probe_row, sel_matched)
+            keep = any_pass if jt is JoinType.LEFT_SEMI else ~any_pass
+            return DeviceRelation(self.schema, lrel.columns, lrel.sel & keep)
+
+        blocks = [block]
+        if jt in (JoinType.LEFT, JoinType.FULL):
+            unmatched = lrel.sel & ~_scatter_any(lrel.capacity, probe_row, sel_matched)
+            rcols2 = J.gather_columns(
+                list(rrel.columns),
+                torch.zeros(lrel.capacity, dtype=torch.int64, device=lrel.device),
+                unmatched, null_extend=torch.ones_like(unmatched))
+            lcols2 = list(lrel.columns)
+            blocks.append(DeviceRelation(
+                block_schema,
+                tuple(rcols2 + lcols2) if swapped else tuple(lcols2 + rcols2),
+                unmatched))
+        if jt is JoinType.FULL:
+            unmatched_b = rrel.sel & ~_scatter_any(rrel.capacity, build_row, sel_matched)
+            lcols3 = J.gather_columns(
+                list(lrel.columns),
+                torch.zeros(rrel.capacity, dtype=torch.int64, device=rrel.device),
+                unmatched_b, null_extend=torch.ones_like(unmatched_b))
+            rcols3 = list(rrel.columns)
+            blocks.append(DeviceRelation(
+                block_schema,
+                tuple(rcols3 + lcols3) if swapped else tuple(lcols3 + rcols3),
+                unmatched_b))
+        return concat_relations(blocks, self.schema)
+
+    def _block_schema(self, lrel, rrel, swapped):
+        """Schema of an expansion block: the full (original-left,
+        original-right) column set, wider than self.schema for semi/anti
+        joins, so that residual filters see both sides."""
+        lsch, rsch = (rrel.schema, lrel.schema) if swapped else (lrel.schema, rrel.schema)
+        return lsch.join(rsch)
+
+    def _line(self):
+        on = ", ".join(f"{l.name()}={r.name()}" for l, r in self.on)
+        if self.range_on is not None:
+            le, re_, op = self.range_on
+            sym = {"lt": "<", "le": "<=", "gt": ">", "ge": ">="}[op]
+            return (f"JoinExec: {self.join_type.value} "
+                    f"range=[{le.name()} {sym} {re_.name()}] (piecewise merge)")
+        return f"JoinExec: {self.join_type.value} on=[{on}]"
+
+
+def concat_relations(rels: List[DeviceRelation], schema: Schema) -> DeviceRelation:
+    """Concatenate relations (the blocks of an outer join). String columns
+    are re-encoded onto one merged dictionary when theirs differ."""
+    out_cols = []
+    for i, f in enumerate(schema.fields):
+        cols = [r.columns[i] for r in rels]
+        if f.dtype.is_list:
+            raise NotImplementedError(
+                "list columns through an outer join are not ported to "
+                "datafusion_tpu_torch yet (ROADMAP queue 1, item 9 "
+                "'Function and nested-type breadth')")
+        if f.dtype.is_string:
+            from .expr_compiler import unify_many_string_columns
+
+            cols = unify_many_string_columns(cols)
+        data = torch.cat([c.data for c in cols])
+        want = torch_dtype(f.dtype)
+        if data.dtype != want:
+            data = data.to(want)
+        validity = None
+        if any(c.validity is not None for c in cols):
+            validity = torch.cat([c.validity if c.validity is not None
+                                  else torch.ones(c.capacity, dtype=torch.bool,
+                                                  device=c.data.device)
+                                  for c in cols])
+        out_cols.append(DeviceColumn(data, validity, f.dtype, cols[0].dictionary))
+    return DeviceRelation(schema, tuple(out_cols), torch.cat([r.sel for r in rels]))

@@ -1,10 +1,12 @@
 """Physical planner: LogicalPlan -> PhysicalPlan.
 
 Port of datafusion_tpu/physical/planner.py for the node kinds this package
-executes: scans, filters, projections, aggregates, DISTINCT, sorts, limits
-and aliases. Every other node kind raises NotImplementedError naming the ROADMAP
-item that ports it, so an unsupported query fails at planning time instead
-of returning a wrong answer."""
+executes: scans, filters, projections, aggregates, DISTINCT, sorts, limits,
+aliases and joins (cross joins and scalar subqueries as joins on a constant
+key, one inequality between the sides as a range join). Every other node
+kind raises NotImplementedError naming the ROADMAP item that ports it, so an
+unsupported query fails at planning time instead of returning a wrong
+answer."""
 from __future__ import annotations
 
 from ..common.errors import PlanError
@@ -15,7 +17,6 @@ from . import plan as P
 
 # logical node kind -> the ROADMAP item (queue 1) that ports its operator
 _NOT_PORTED = {
-    L.Join: "item 6 'Joins'",
     L.Window: "item 8 'physical/window.py'",
     L.Unnest: "item 9 'Function and nested-type breadth'",
     L.Union: "item 12 'Remaining surface'",
@@ -90,6 +91,14 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
         return P.SortExec(_maybe_compact(inp), plan.sort_specs, plan.fetch)
     if isinstance(plan, L.Limit):
         return P.LimitExec(child(plan.input), plan.skip, plan.fetch)
+    if isinstance(plan, L.Join):
+        left = child(plan.left)
+        right = child(plan.right)
+        if plan.join_type is L.JoinType.CROSS or not plan.on:
+            return _cross_join(left, right, plan)
+        _reject_list_keys([l for l, _ in plan.on], plan.left.schema, "join keys")
+        return P.JoinExec(_maybe_compact(left), _maybe_compact(right), plan.on,
+                          plan.join_type, plan.filter, plan.schema)
     if isinstance(plan, L.SubqueryAlias):
         return AliasExec(child(plan.input), plan.schema)
     if isinstance(plan, L.Distinct):
@@ -106,9 +115,10 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
 
 
 def _maybe_compact(p: P.PhysicalPlan) -> P.PhysicalPlan:
-    """Wrap a grouped aggregate's or sort's input in CompactExec when the
-    subtree can produce a sparse selection mask (filters, top-k, limits).
-    Execution turns the node into identity when the input is in fact dense."""
+    """Wrap a grouped aggregate's, sort's or join's input in CompactExec when
+    the subtree can produce a sparse selection mask (filters, joins other
+    than FULL, top-k, limits). Execution turns the node into identity when
+    the input is in fact dense."""
     if _sparse_producer(p):
         return P.CompactExec(p)
     return p
@@ -117,6 +127,10 @@ def _maybe_compact(p: P.PhysicalPlan) -> P.PhysicalPlan:
 def _sparse_producer(p: P.PhysicalPlan) -> bool:
     if isinstance(p, (P.FilterExec, P.LimitExec)):
         return True
+    if isinstance(p, P.JoinExec):
+        # semi/anti only mask; INNER/LEFT direct-address joins keep the
+        # probe's capacity with a (often sparse) mask
+        return p.join_type is not L.JoinType.FULL
     if isinstance(p, P.SortExec):
         return p.fetch is not None
     if isinstance(p, (P.ProjectionExec, AliasExec)):
@@ -135,3 +149,72 @@ def _reject_list_keys(exprs, schema, where: str):
             raise PlanError(
                 f"list-typed expression {e.name()!r} cannot be used in "
                 f"{where}; unnest it first")
+
+
+_RANGE_OPS = {E.Op.LT: "lt", E.Op.LE: "le", E.Op.GT: "gt", E.Op.GE: "ge"}
+
+
+def _extract_range_predicate(plan: L.Join):
+    """Split the join filter into (left_expr, right_expr, op) for ONE
+    inequality comparing a left-side expression against a right-side one,
+    plus the residual conjuncts. Returns (range_on, residual) or
+    (None, None) without a filter."""
+    from ..optimizer.decorrelate import conjoin, split_conjuncts
+
+    if plan.filter is None:
+        return None, None
+    lsch, rsch = plan.left.schema, plan.right.schema
+
+    def only_in(e, schema):
+        cols = E.collect_columns(e)
+        if not cols:
+            return False
+        try:
+            return all(schema.find(c.flat_name) is not None for c in cols)
+        except Exception:  # noqa: BLE001 -- ambiguous name
+            return False
+
+    range_on = None
+    rest = []
+    for conj in split_conjuncts(plan.filter):
+        if range_on is None and isinstance(conj, E.BinaryOp) \
+                and conj.op in _RANGE_OPS:
+            l, r = conj.left, conj.right
+            if only_in(l, lsch) and only_in(r, rsch):
+                range_on = (l, r, _RANGE_OPS[conj.op])
+                continue
+            if only_in(r, lsch) and only_in(l, rsch):
+                mirror = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+                range_on = (r, l, mirror[_RANGE_OPS[conj.op]])
+                continue
+        rest.append(conj)
+    return range_on, conjoin(rest)
+
+
+def _cross_join(left: P.PhysicalPlan, right: P.PhysicalPlan, plan: L.Join) -> P.PhysicalPlan:
+    """Cross join as an equi-join on a constant key (both sides key 1): the
+    expansion produces the cartesian product and any filter is a residual.
+    A filter holding one inequality between the sides takes the range join
+    instead, unless one side is provably one row (TPC-H Q11's and Q22's
+    scalar subqueries), where the constant-key join is cheaper."""
+    jt = plan.join_type if plan.join_type is not L.JoinType.CROSS else L.JoinType.INNER
+    range_on, residual = _extract_range_predicate(plan)
+    if range_on is not None and not (_single_row(plan.left) or
+                                     _single_row(plan.right)):
+        return P.JoinExec(left, right, [], jt, residual, plan.schema,
+                          range_on=range_on)
+    one = E.lit(1)
+    return P.JoinExec(left, right, [(one, one)], jt, plan.filter, plan.schema)
+
+
+def _single_row(p: L.LogicalPlan) -> bool:
+    """Provably at most one row: an ungrouped aggregate or LIMIT 1 (VALUES
+    and empty relations, which the reference also counts, do not plan in
+    this package yet)."""
+    while isinstance(p, (L.Projection, L.SubqueryAlias)):
+        p = p.input
+    if isinstance(p, L.Aggregate):
+        return len(p.group_exprs) == 0
+    if isinstance(p, L.Limit):
+        return p.fetch is not None and p.fetch <= 1
+    return False

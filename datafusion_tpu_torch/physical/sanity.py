@@ -13,6 +13,7 @@ from typing import List
 
 from ..common.errors import PlanError
 from ..expr import nodes as E
+from ..logical.plan import JoinType
 from . import plan as P
 
 
@@ -85,6 +86,21 @@ def _walk(p: P.PhysicalPlan, errors: List[str]) -> None:
             else:
                 _check_exprs(list(inner.args), p.input.schema,
                              f"{name} args", errors)
+    elif isinstance(p, P.JoinExec):
+        both = p.left.schema.join(p.right.schema)
+        for l, r in p.on:
+            _check_exprs([l], p.left.schema, f"{name} left key", errors)
+            _check_exprs([r], p.right.schema, f"{name} right key", errors)
+        _check_exprs([p.filter], both, f"{name} filter", errors)
+        if p.join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            want = len(p.left.schema)
+        elif p.join_type in (JoinType.RIGHT_SEMI, JoinType.RIGHT_ANTI):
+            want = len(p.right.schema)
+        else:
+            want = len(both)
+        if len(p.schema) != want:
+            errors.append(f"{name} ({p.join_type.value}): schema has "
+                          f"{len(p.schema)} columns, expected {want}")
     elif isinstance(p, AliasExec):
         if len(p.schema) != len(p.input.schema):
             errors.append(f"{name}: column count changed "

@@ -1,8 +1,9 @@
 """The port's expression compiler (datafusion_tpu_torch/physical/
 expr_compiler.py) against the JAX package's, slot by slot with bounds: on
 TPC-H Q1's and Q6's own expressions (each package plans the same SQL, and the
-port evaluates over a relation rebuilt from the JAX scan's numpy leaves), and
-on decimal/integer arithmetic with negative values."""
+port evaluates over a relation rebuilt from the JAX scan's numpy leaves), on
+decimal/integer arithmetic with negative values, and on the TPC-H subset of
+LIKE, CASE, IN lists, extract(year/month/day) and substring."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,16 +164,96 @@ def test_dates_accept_numpy_and_tensors():
     assert np.array_equal(PDU.days_from_civil(*PDU.civil_from_days(days)), days)
 
 
-@pytest.mark.parametrize("what", ["like", "case", "in_list", "function", "string_cast"])
+@pytest.mark.parametrize("what", ["string_function", "date_trunc", "string_vs_date",
+                                  "function", "string_cast"])
 def test_unported_expressions_raise(what):
     rel = TD.to_device(PTable.from_pydict({"s": ["a", "b"], "x": [1, 2]}), device="cpu")
-    gt = E.BinaryOp(E.Op.GT, E.Column("x"), E.lit(1))
     e = {
-        "like": E.Like(E.Column("s"), E.lit("a%")),
-        "case": E.Case(None, ((gt, E.lit(1)),), E.lit(0)),
-        "in_list": E.InList(E.Column("x"), (E.lit(1), E.lit(2))),
+        "string_function": E.ScalarFunction("upper", (E.Column("s"),)),
+        "date_trunc": E.ScalarFunction("date_trunc", (E.lit("month"), E.Column("x"))),
+        "string_vs_date": E.BinaryOp(E.Op.LT, E.Column("s"),
+                                     E.Literal("1995-01-01", T.DATE32)),
         "function": E.ScalarFunction("abs", (E.Column("x"),)),
         "string_cast": E.Cast(E.Column("x"), T.STRING),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PX.eval_expr(e, rel)
+
+
+# ---------------------------------------------------------------------------
+# the TPC-H expression subset: LIKE, CASE, IN, extract, substring
+# ---------------------------------------------------------------------------
+
+_DATES = [-800_000, -719_468, -25_567, -366, -365, -1, 0, 59, 365, 11_016, 19_000, 2_932_896]
+_ROWS = {
+    "s": ["apple", "banana", None, "x%y", "xzy", "Apple", "a_b", "", "kiwi", "x\\y",
+          "PROMO BRUSHED", "13-555"],
+    "t": ["pear", "kiwi", "fig", None, "kiwi", "a", "b", "c", "pear", "d", "e", "31-1"],
+    "d": [-12.34, 1.0, -0.99, 5.5, 0.0, 0.01, 0.99, 12.34, None, 3.0, -3.0, 7.77],
+    "i": [-7, 3, None, 0, 5, -2, 7, 2, 1, 9, 4, -1],
+    "day": _DATES,
+}
+
+
+def _rel_pair():
+    def types(Ty):
+        return {"d": Ty.decimal(12, 2), "day": Ty.DATE32, "i": Ty.INT64,
+                "s": Ty.STRING, "t": Ty.STRING}
+    return (JD.to_device(JTable.from_pydict(_ROWS, types(JT))),
+            TD.to_device(PTable.from_pydict(_ROWS, types(T)), device="cpu"))
+
+
+def _subset_expr(N, Ty, case):
+    s, t, d, i, day = (N.Column(c) for c in ("s", "t", "d", "i", "day"))
+    gt = N.BinaryOp(N.Op.GT, i, N.lit(1))
+    year = N.ScalarFunction("extract", (N.Literal("year", Ty.STRING), day))
+    return {
+        "like_prefix": N.Like(s, N.lit("a%")),
+        "like_infix": N.Like(s, N.lit("%an%")),
+        "like_underscore": N.Like(s, N.lit("_i%")),
+        "like_escape": N.Like(s, N.lit("x\\%y")),
+        "like_literal_backslash": N.Like(s, N.lit("x\\\\y")),
+        "not_like": N.Like(s, N.lit("PROMO%"), negated=True),
+        "ilike": N.Like(s, N.lit("apple"), case_insensitive=True),
+        "case_searched": N.Case(None, ((gt, N.lit(1)),), N.lit(0)),
+        "case_no_else": N.Case(None, ((gt, d), (N.IsNull(i), N.lit(2.5))), None),
+        "case_operand": N.Case(i, ((N.lit(3), N.lit("three")), (N.lit(7), s)),
+                               N.lit("other")),
+        "case_strings": N.Case(None, ((N.Like(s, N.lit("a%")), s),), t),
+        "case_decimal": N.Case(None, ((N.Like(s, N.lit("PROMO%")), N.BinaryOp(
+            N.Op.MUL, d, N.BinaryOp(N.Op.SUB, N.lit(1), d))),), N.lit(0)),
+        "in_ints": N.InList(i, (N.lit(1), N.lit(3), N.lit(9))),
+        "not_in_with_null": N.InList(i, (N.lit(1), N.Literal(None, Ty.INT64)), negated=True),
+        "in_strings": N.InList(N.ScalarFunction("substring", (s, N.lit(1), N.lit(2))),
+                               (N.lit("13"), N.lit("31"), N.lit("ap"))),
+        "not_in_strings": N.InList(t, (N.lit("kiwi"), N.lit("zz")), negated=True),
+        "extract_year": year,
+        "extract_month": N.ScalarFunction("extract", (N.Literal("month", Ty.STRING), day)),
+        "extract_day": N.ScalarFunction("date_part", (N.Literal("day", Ty.STRING), day)),
+        "year_arith": N.BinaryOp(N.Op.SUB, year, N.lit(1)),
+        "substring_from_for": N.ScalarFunction("substring", (s, N.lit(2), N.lit(3))),
+        "substring_from": N.ScalarFunction("substr", (t, N.lit(2))),
+        "substring_from_zero": N.ScalarFunction("substring", (s, N.lit(0), N.lit(3))),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "like_prefix", "like_infix", "like_underscore", "like_escape", "like_literal_backslash",
+    "not_like", "ilike", "case_searched", "case_no_else", "case_operand", "case_strings",
+    "case_decimal", "in_ints", "not_in_with_null", "in_strings", "not_in_strings",
+    "extract_year", "extract_month", "extract_day", "year_arith", "substring_from_for",
+    "substring_from", "substring_from_zero"])
+def test_tpch_subset_matches_jax(case):
+    """Each expression over one 12-row relation (NULLs, dates before 1970,
+    LIKE metacharacters as data) against the JAX package: data, validity,
+    bounds and the dictionary of string results."""
+    jrel, prel = _rel_pair()
+    got = PX.eval_expr(_subset_expr(E, T, case), prel)
+    want = JX.eval_expr(_subset_expr(JE, JT, case), jrel)
+    _same_column(got, want)
+    assert (got.dictionary is None) == (want.dictionary is None)
+    if want.dictionary is not None:
+        assert list(got.dictionary.values) == list(want.dictionary.values)
+    if got.dtype == T.BOOL:
+        assert np.array_equal(PX.eval_predicate(_subset_expr(E, T, case), prel).numpy(),
+                              np.asarray(JX.eval_predicate(_subset_expr(JE, JT, case), jrel)))

@@ -2,7 +2,8 @@
 JAX package's SessionContext at SF 0.01 (frames_diff: integers, decimals and
 strings exact, floats to rtol 1e-6 / atol 1e-4 because summation order
 differs), plus the operators and planner paths around them: dense, sorted
-and global aggregates, DISTINCT. A query the port
+and global aggregates, DISTINCT (tests/test_torch_tpch22.py runs the other
+twenty queries). A query the port
 cannot run yet must raise NotImplementedError, never answer wrongly."""
 import numpy as np
 import pytest
@@ -118,9 +119,13 @@ def test_more_queries_match_jax(sessions, sql, ordered):
 
 
 @pytest.mark.parametrize("sql", [
-    query(3, SF),  # a join
-    "select sqrt(l_quantity) from lineitem",  # scalar functions but power/pow
-    "select l_comment from lineitem where l_comment like '%ab%'",
+    # a window function (ROADMAP item 8)
+    "select l_orderkey, row_number() over (partition by l_returnflag "
+    "order by l_orderkey) rn from lineitem",
+    "select sqrt(l_quantity) from lineitem",  # scalar functions not ported
+    # a UNION (ROADMAP item 12)
+    "select l_orderkey from lineitem where l_quantity < 2 "
+    "union all select l_orderkey from lineitem where l_quantity > 49",
 ])
 def test_unported_queries_raise(sessions, sql):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

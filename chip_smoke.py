@@ -24,22 +24,31 @@ order, it:
      cross-checked with torch.profiler), beside its
      first design, its plain version, one PyTorch library call computing the
      same function, and its bound (bytes the data needs / the card's memory
-     rate), then times warm Q1 and Q6 end to end;
-  6. runs all 22 TPC-H queries at --sf through the same API -- joins on
-     every path (direct, sort-merge, semi/anti, minmax, outer with residual,
+     rate), then times warm Q1 and Q6 end to end (the kernel against its
+     first design in turns on the plan executed operator by operator) and
+     profiles one replay of each;
+  6. runs all 22 TPC-H queries at --sf through the same API, each on a new
+     DataFrame (discovery: the plan operator by operator) -- joins on every
+     path (direct, sort-merge, semi/anti, minmax, outer with residual,
      one-row cross joins), LIKE, CASE, IN, extract and substring -- each
      checked against the pandas oracle with frames_diff, and prints for each
      query the path of every JoinExec, the kernel's launches with their G
      and route (launch counts reset just before the query, read just
-     after), the host synchronisations of one warm collect() (counted by
-     torch.cuda.set_sync_debug_mode), the host time of the LIKE and
-     substring work over dictionaries with their table copies, warm times
-     as in 5, and one profile
-     (device busy, idle share, op families: sort, searchsorted, gather,
-     scatter, cumsum, copy); fails unless the kernel ran in Q4, Q11, Q15
-     and Q17; holds the kernel against its plain version, bit for bit, at
-     every new shape the queries gave it and times it there as in 5;
-  7. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
+     after) and the host time of the LIKE and substring work over
+     dictionaries; fails unless the kernel ran in Q4, Q11, Q15 and Q17;
+     holds the kernel against its plain version, bit for bit, at every new
+     shape the queries gave it and times it there as in 5;
+  7. the steady state (physical/fused.py), for each TPC-H query: one
+     DataFrame collected three times (discovery, capture of the CUDA graph
+     and a replay, a replay), each answer checked against the oracle; fails
+     unless the steady state is a captured graph, unless one warm collect()
+     makes at most 2 host syncs, and unless a profiled replay launches the
+     kernel where discovery did (a shared sub-plan runs once there); prints the eager collect() (the plan
+     operator by operator, then the host copy) and the fused one timed in
+     turns, sql()+collect(), the capture's host ms, the host syncs of each
+     (torch.cuda.set_sync_debug_mode), and one profile of each (device busy,
+     idle share, op families), and the memory reserved after each query;
+  8. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
      K = 100, seed 42) and runs groupby q1-q7, q9 and q10 through the same
      API -- the second main path -- each checked against a pandas oracle on
      the same table (floats to rtol 1e-9 / atol 1e-9, the rest exact) with
@@ -47,10 +56,8 @@ order, it:
      shared and global routes); checks that q8 (a window query) raises; holds
      segment min/max on the card against the CPU on NaN, -0.0 and int64
      extremes; holds the kernel against its plain version at the h2o shapes
-     and times it there as in 5; times each query warm and profiles it once
-     (device busy, idle share, top device ops, and the sort path's sorts,
-     gathers, cumulative sums and scatters);
-  8. prints a {"kernels": [...]} line, the card's name and power limit, and,
+     and times it there as in 5; then runs each query's steady state as in 7;
+  9. prints a {"kernels": [...]} line, the card's name and power limit, and,
      last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA device it exits with code 2 at once.
@@ -83,7 +90,9 @@ from datafusion_tpu_torch.models.tpch.queries_ref import ref_query
 from datafusion_tpu_torch.ops import cuda_build
 from datafusion_tpu_torch.ops import dense_agg as DA
 from datafusion_tpu_torch.ops import kernels as K
+from datafusion_tpu_torch.data.device import to_host
 from datafusion_tpu_torch.physical import functions as F
+from datafusion_tpu_torch.physical import fused as FQ
 from datafusion_tpu_torch.physical import plan as P
 
 # H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound
@@ -575,8 +584,15 @@ def warm_timing(ctx, sql: str, repeat: int):
                 "collect_ms_median": statistics.median(exe), "collect_ms": exe}
 
 
+def eager_collect(ctx, df) -> Table:
+    """collect() without the steady state: the DataFrame's physical plan
+    operator by operator (the path discovery takes), then the host copy."""
+    return to_host(df.physical_plan().execute(ctx.exec_context()))
+
+
 def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
-    """warm_timing, then the reused-plan collect() once more with the
+    """warm_timing, then the reused plan executed operator by operator
+    (eager_collect: a replayed graph would not call the wrapper) with the
     engine's kernel and with its first design (`baseline`) swapped in, in
     turns (new, first, first, new, ...), so that the two differ only by the
     kernel."""
@@ -587,9 +603,9 @@ def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
         for i in range(4 * repeat):
             name = ("kernel", "first_design", "first_design", "kernel")[i % 4]
             DA.dense_groupby_sums = kernel if name == "kernel" else baseline
-            df.collect()  # warm this kernel
+            eager_collect(ctx, df)  # warm this kernel
             t0 = time.perf_counter()
-            df.collect()
+            eager_collect(ctx, df)
             turns[name].append((time.perf_counter() - t0) * 1e3)
     finally:
         DA.dense_groupby_sums = kernel
@@ -617,29 +633,32 @@ def op_family(name: str) -> str:
     return "other"
 
 
-def profile_query(ctx, label: str, sql: str, expect=()) -> dict:
-    """One warm collect() (plan reused) under torch.profiler, after one in
-    its warm-up step: device busy time summed over kernels and copies on the
-    card, the host wall time of the window, the kernels that took the most
-    device time, and the device time of each op family (OP_FAMILIES). A
-    profile that lost every device event, or a family in `expect`, is taken
-    again (up to 3 times)."""
+def profile_call(label: str, step, expect=()) -> dict:
+    """One call of step() (a warm collect()) under torch.profiler, after one
+    in its warm-up step: device busy time summed over kernels and copies on
+    the card, the host wall time of the window, the kernels that took the
+    most device time, the device time of each op family (OP_FAMILIES) and
+    the dense kernel's launches the profiler saw. A profile that lost every
+    device event, or a family in `expect`, is taken again, a moment later
+    (up to 6 times): a profile of a graph replay now and then comes back
+    without any device event (1 profiling session in 12 in one run on an
+    H100)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    df = ctx.sql(sql)
-    df.collect()
-    for attempt in range(1, 4):
+    for attempt in range(1, 7):
+        if attempt > 1:
+            time.sleep(0.2)
         wall = []
 
-        def timed_collect():
+        def timed_step():
             t0 = time.perf_counter()
-            df.collect()
+            step()
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
 
         prof = profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                        df.collect, timed_collect)
+                        step, timed_step)
         # the step annotation spans the whole step: not a device op
         device = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
@@ -648,7 +667,7 @@ def profile_query(ctx, label: str, sql: str, expect=()) -> dict:
         if device and all(any(op_family(e.key) == f for e in device)
                           for f in expect):
             break
-    check(bool(device), f"profile {label}: no device events in 3 attempts")
+    check(bool(device), f"profile {label}: no device events in 6 attempts")
     wall_ms = wall[0]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
@@ -661,6 +680,7 @@ def profile_query(ctx, label: str, sql: str, expect=()) -> dict:
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_ops": sum(e.count for e in device),
+            "dgs_launches": sum(e.count for e in device if "dgs_" in e.key),
             "families": families,
             "top": [{"name": e.key[:90], "count": e.count,
                      "ms": e.self_device_time_total / 1e3} for e in top]}
@@ -688,8 +708,9 @@ def join_paths(df) -> list:
 
 class RecordDictionaryWork:
     """Host time of every call that works over a string column's dictionary
-    and copies its lookup table to the card: LIKE (F.dict_predicate) and
-    substring (F.transform_dictionary)."""
+    and hands out its lookup table on the card: LIKE (F.dict_predicate) and
+    substring (F.transform_dictionary). Both are cached per dictionary: a
+    call that hits the cache costs microseconds."""
 
     NAMES = {"like": "dict_predicate", "substring": "transform_dictionary"}
 
@@ -698,9 +719,9 @@ class RecordDictionaryWork:
         self._orig = {k: getattr(F, n) for k, n in self.NAMES.items()}
 
         def timed(kind):
-            def call(col, fn):
+            def call(*args):
                 t0 = time.perf_counter()
-                out = self._orig[kind](col, fn)
+                out = self._orig[kind](*args)
                 self.ms[kind].append((time.perf_counter() - t0) * 1e3)
                 return out
             return call
@@ -714,26 +735,27 @@ class RecordDictionaryWork:
             setattr(F, name, self._orig[kind])
 
 
-def host_syncs(df) -> int:
-    """Host synchronisations of one warm collect(), as
+def host_syncs(step) -> int:
+    """Host synchronisations of one call of step() (a warm collect()), as
     torch.cuda.set_sync_debug_mode("warn") reports them (the result's
-    copies to the host included)."""
+    copy to the host included)."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
-            df.collect()
+            step()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     return sum("synchroniz" in str(w.message) for w in seen)
 
 
-def run_tpch22(ctx, frames, sf: float, repeat: int) -> dict:
-    """All 22 TPC-H queries once each through the public API, checked
-    against the pandas oracle, then timed warm and profiled. Returns {qid:
-    (launches, recorded kernel calls)}."""
-    out = {}
+def run_tpch22(ctx, frames, sf: float):
+    """All 22 TPC-H queries once each through the public API (a new
+    DataFrame: discovery, the eager path), checked against the pandas
+    oracle. Returns ({qid: (launches, recorded kernel calls)}, {qid: the
+    oracle's answer})."""
+    out, refs = {}, {}
     for qid in range(1, 23):
         sql = query(qid, sf)
         df = ctx.sql(sql)
@@ -762,16 +784,8 @@ def run_tpch22(ctx, frames, sf: float, repeat: int) -> dict:
                                for _, _, pairs, G in rec.calls],
               "dictionary_host_ms": dwork.ms, "matches_oracle": True})
         out[qid] = (launches, rec.calls)
-    for qid in range(1, 23):
-        sql = query(qid, sf)
-        df, timing = warm_timing(ctx, sql, repeat)
-        with RecordDictionaryWork() as dwork:
-            syncs = host_syncs(df)
-        emit({"tpch_timing": f"q{qid}", "host_syncs": syncs,
-              "dictionary_host_ms": dwork.ms, **timing})
-        emit(profile_query(ctx, f"tpch_q{qid}", sql,
-                           expect=("dense_groupby_sums",) if out[qid][0] else ()))
-    return out
+        refs[qid] = ref
+    return out, refs
 
 
 # ---------------------------------------------------------------------------
@@ -905,11 +919,12 @@ class RecordSortKeys:
         K._packed_sort_key = self._orig
 
 
-def run_h2o(ctx, table: Table, frame) -> dict:
-    """h2o groupby q1-q7, q9, q10 once each through the public API, checked
-    against the pandas oracle; q8 must raise. Returns {qid: (launches,
-    recorded kernel calls)}."""
-    out = {}
+def run_h2o(ctx, table: Table, frame):
+    """h2o groupby q1-q7, q9, q10 once each through the public API (a new
+    DataFrame: discovery), checked against the pandas oracle; q8 must raise.
+    Returns ({qid: (launches, recorded kernel calls)}, {qid: the oracle's
+    answer})."""
+    out, refs = {}, {}
     for qid in H2O_QUERIES:
         sql = GROUPBY_QUERIES[qid - 1]
         df = ctx.sql(sql)
@@ -940,6 +955,7 @@ def run_h2o(ctx, table: Table, frame) -> dict:
               "groups": [G for _, _, _, G in rec.calls],
               "matches_oracle": True})
         out[qid] = (launches, rec.calls)
+        refs[qid] = ref
     try:
         ctx.sql(GROUPBY_QUERIES[7]).collect()
         raise RuntimeError("chip_smoke: h2o q8 (a window query) answered")
@@ -947,7 +963,7 @@ def run_h2o(ctx, table: Table, frame) -> dict:
         check("item 8" in str(e), f"h2o q8 raised without its ROADMAP item: {e}")
         emit({"h2o_query": "q8", "raises": "NotImplementedError",
               "message": str(e)})
-    return out
+    return out, refs
 
 
 def check_segment_extremes(dev) -> None:
@@ -974,6 +990,116 @@ def check_segment_extremes(dev) -> None:
                 check(same, f"{fn.__name__}({kind}, G={G}) on the card "
                             f"{got.tolist()} vs the CPU {want.tolist()}")
     emit({"segment_extremes_card_vs_cpu": "equal"})
+
+
+# ---------------------------------------------------------------------------
+# 8. the steady state: discovery, capture, replay
+# ---------------------------------------------------------------------------
+
+
+def fused_query(ctx, label: str, sql: str, same, repeat: int) -> dict:
+    """One DataFrame collected three times -- discovery, the capture of its
+    steady state (then one replay), a replay -- each answer held by
+    `same(table)` against the oracle; the steady state must be a captured
+    CUDA graph. Then, in turns on the same DataFrame, the eager collect()
+    (eager_collect) and the fused one (replay); sql()+collect() on a new
+    DataFrame each time (discovery); the host syncs of one warm collect()
+    each way (the fused one may make 2: its overflow flag and the host
+    copy, or 1 without an overflow guard); and one profile each way, where
+    the replay must launch the dense kernel as often as the steady state's
+    eager run did, which launches it where discovery did (a sub-plan shared
+    by two parents, such as Q15's view, runs once in the steady state)."""
+    df = ctx.sql(sql)
+    fq = df._fused_query()
+    DA.reset_launches()
+    t0 = time.perf_counter()
+    got = df.collect()
+    discovery_ms = (time.perf_counter() - t0) * 1e3
+    same(got)
+    launches = DA.launches
+    # the build runs the steady state once eagerly before capturing it: its
+    # launches are what one replay launches (a shared sub-plan, as Q15's
+    # view, runs once there and twice in discovery)
+    DA.reset_launches()
+    t0 = time.perf_counter()
+    got = df.collect()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    same(got)
+    del got
+    steady_launches = DA.launches
+    check((steady_launches > 0) == (launches > 0) and steady_launches <= launches,
+          f"{label}: the steady state launched the dense kernel "
+          f"{steady_launches} times, discovery {launches}")
+    check(isinstance(fq._fused, FQ._Graph),
+          f"{label}: the steady state is {type(fq._fused).__name__}, not a "
+          f"captured CUDA graph")
+    graph = fq._fused
+    same(df.collect())
+    check(fq._fused is graph, f"{label}: a replay captured the graph again")
+    turns = {"eager": [], "fused": []}
+    for i in range(2 * repeat):
+        name = ("eager", "fused", "fused", "eager")[i % 4]
+        t0 = time.perf_counter()
+        eager_collect(ctx, df) if name == "eager" else df.collect()
+        turns[name].append((time.perf_counter() - t0) * 1e3)
+    full = []
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        ctx.sql(sql).collect()
+        full.append((time.perf_counter() - t0) * 1e3)
+    syncs = {"eager": host_syncs(lambda: eager_collect(ctx, df)),
+             "fused": host_syncs(df.collect)}
+    check(syncs["fused"] <= 2, f"{label}: {syncs['fused']} host syncs in one "
+                               f"warm fused collect()")
+    expect = ("dense_groupby_sums",) if launches else ()
+    eager = profile_call(f"{label}_eager", lambda: eager_collect(ctx, df), expect)
+    fused = profile_call(f"{label}_fused", df.collect, expect)
+    check(fused["dgs_launches"] == steady_launches,
+          f"{label}: {fused['dgs_launches']} dense kernel launches in one "
+          f"replay, {steady_launches} in the steady state's eager run")
+    check(fq._fused is graph, f"{label}: the graph was captured again")
+    out = {"fused_query": label, "graph": True,
+           "discovery_ms": discovery_ms, "capture_ms": fq.capture_ms,
+           "second_collect_ms": build_ms,
+           "eager_collect_ms_median": statistics.median(turns["eager"]),
+           "fused_collect_ms_median": statistics.median(turns["fused"]),
+           "sql_collect_ms_median": statistics.median(full),
+           "host_syncs": syncs, "dgs_launches_discovery": launches,
+           "dgs_launches_steady_eager": steady_launches,
+           "dgs_launches_replay": fused["dgs_launches"],
+           "eager_busy_ms": eager["device_busy_ms"],
+           "eager_idle_share": eager["device_idle_share"],
+           "eager_device_ops": eager["device_ops"],
+           "fused_busy_ms": fused["device_busy_ms"],
+           "fused_idle_share": fused["device_idle_share"],
+           "fused_device_ops": fused["device_ops"],
+           "fused_wall_ms": fused["wall_ms"],
+           # the profiler slows the host: busy time against the median of
+           # the unprofiled collect() too
+           "eager_idle_share_vs_median": 1.0 - eager["device_busy_ms"]
+           / statistics.median(turns["eager"]),
+           "fused_idle_share_vs_median": 1.0 - fused["device_busy_ms"]
+           / statistics.median(turns["fused"]),
+           "collect_ms_in_turns": turns, "sql_collect_ms": full,
+           "matches_oracle": True}
+    emit(eager)
+    emit(fused)
+    del df, fq, graph
+    torch.cuda.empty_cache()
+    out["memory_reserved_after"] = torch.cuda.memory_reserved()
+    return out
+
+
+def run_fused_tpch(ctx, sf: float, refs, repeat: int) -> None:
+    """fused_query over the 22 TPC-H queries (`refs`: their oracle answers)."""
+    for qid in range(1, 23):
+        def same(got, qid=qid):
+            diff = frames_diff(got.to_pandas(), refs[qid],
+                               ordered=qid in LIMIT_QUERIES)
+            check(diff is None, f"fused TPC-H Q{qid} differs from the pandas "
+                                f"oracle: {diff}")
+        emit(fused_query(ctx, f"tpch_q{qid}", query(qid, sf), same, repeat))
+    emit({"phase": "fused_tpch", "memory_reserved": torch.cuda.memory_reserved()})
 
 
 def main() -> int:
@@ -1044,10 +1170,12 @@ def main() -> int:
     for qid in (1, 6):
         emit(query_timing(ctx, args.sf, qid, args.repeat, baseline))
     for qid in (1, 6):
-        emit(profile_query(ctx, f"q{qid}", query(qid, args.sf),
-                           expect=("dense_groupby_sums",)))
+        df = ctx.sql(query(qid, args.sf))
+        df.collect()
+        df.collect()  # capture the steady state before the profiler starts
+        emit(profile_call(f"q{qid}", df.collect, expect=("dense_groupby_sums",)))
 
-    tpch = run_tpch22(ctx, frames, args.sf, args.repeat)
+    tpch, refs = run_tpch22(ctx, frames, args.sf)
     launches += sum(n for n, _ in tpch.values())
     seen = {(int(c[0].shape[0]), c[3], len(c[2])) for _, calls in main_path.values()
             for c in calls}
@@ -1063,6 +1191,8 @@ def main() -> int:
             shapes[label] = t
             emit({"kernel_timing": KERNEL["name"], "shape": label, **t})
 
+    run_fused_tpch(ctx, args.sf, refs, args.repeat)
+
     check_segment_extremes(dev)
     t0 = time.perf_counter()
     h2o = generate_groupby(args.h2o_rows, k=H2O_K, seed=42)
@@ -1073,7 +1203,7 @@ def main() -> int:
           "distinct": {f.name: len(c.dictionary.values)
                        for f, c in zip(h2o.schema.fields, h2o.columns)
                        if c.dictionary is not None}})
-    h2o_path = run_h2o(ctx, h2o, frame)
+    h2o_path, h2o_refs = run_h2o(ctx, h2o, frame)
     launches += sum(n for n, _ in h2o_path.values())
     for qid, (n, calls) in h2o_path.items():
         for call in calls:
@@ -1082,11 +1212,11 @@ def main() -> int:
             shapes[f"h2o_q{qid}"] = t
             emit({"kernel_timing": KERNEL["name"], "shape": f"h2o_q{qid}", **t})
     for qid in H2O_QUERIES:
-        emit({"h2o_timing": f"q{qid}",
-              **warm_timing(ctx, GROUPBY_QUERIES[qid - 1], args.repeat)[1]})
-        emit(profile_query(ctx, f"h2o_q{qid}", GROUPBY_QUERIES[qid - 1],
-                           expect=("dense_groupby_sums",) if qid in H2O_LAUNCHES
-                           else ()))
+        def same(got, qid=qid):
+            h2o_compare(qid, got, h2o_refs[qid], h2o)
+        emit(fused_query(ctx, f"h2o_q{qid}", GROUPBY_QUERIES[qid - 1], same,
+                         args.repeat))
+    emit({"phase": "fused_h2o", "memory_reserved": torch.cuda.memory_reserved()})
 
     q1 = shapes["q1"]
     emit({"kernels": [{**KERNEL, "launches": launches, "max_abs_err": max_err,

@@ -4,7 +4,8 @@ Port of the in-memory half of datafusion_tpu/catalog/catalog.py (reference:
 datafusion/catalog/src/{catalog.rs,table.rs,memory/}). A MemTable caches the
 torch encoding of the columns it has been asked for, per device, so repeated
 queries find their columns resident on the card. File-backed providers,
-streaming tables and the recursive-CTE work table are not ported yet."""
+streaming tables and the recursive-CTE work table are not ported yet: a
+WorkTable raises NotImplementedError when the planner builds one."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
@@ -78,6 +79,17 @@ class TableProvider:
             uniq = False
         cache[cols] = uniq
         return uniq
+
+
+class WorkTable(TableProvider):
+    """The recursive CTE's working table. Recursive queries are not ported
+    yet, so planning a `WITH RECURSIVE` stops here."""
+
+    def __init__(self, name: str, schema: Schema):
+        raise NotImplementedError(
+            f"recursive CTE {name!r} (WITH RECURSIVE) is not ported to "
+            "datafusion_tpu_torch yet (ROADMAP queue 1, item 12 'Remaining "
+            "surface')")
 
 
 class MemTable(TableProvider):

@@ -1,11 +1,12 @@
 """SessionContext + DataFrame: the user-facing API.
 
 Port of the SQL path of datafusion_tpu/context.py: register in-memory tables,
-run SELECT and EXPLAIN statements, collect results. Plans run eagerly,
-operator by operator, on the session's device, which is the CUDA card unless
-the caller passes another (`SessionContext(device="cpu")`). DDL, DML, file
-tables, UDF registration and streaming execution are not ported yet
-(ROADMAP queue 1, item 12 'Remaining surface')."""
+run SELECT and EXPLAIN statements, collect results. Plans run on the
+session's device, which is the CUDA card unless the caller passes another
+(`SessionContext(device="cpu")`): operator by operator the first time a
+DataFrame is collected, then as a steady state (physical/fused.py). DDL,
+DML, file tables, UDF registration and streaming execution are not ported
+yet (ROADMAP queue 1, item 12 'Remaining surface')."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -140,9 +141,21 @@ class DataFrame:
 
     @with_registry
     def collect(self) -> Table:
-        """Execute the physical plan eagerly on the session's device and
-        return the live rows as a host Table."""
-        return to_host(self.physical_plan().execute(self._ctx.exec_context()))
+        """Execute on the session's device and return the live rows as a
+        host Table. Runs through FusedQuery (physical/fused.py): the first
+        collect() of a DataFrame executes the plan operator by operator and
+        discovers its capacities; the second builds the steady state (on a
+        CUDA device, one captured CUDA graph) and every later one replays
+        it."""
+        return to_host(self._fused_query().execute(self._ctx.exec_context()))
+
+    def _fused_query(self):
+        """One FusedQuery per DataFrame, over its cached physical plan."""
+        if getattr(self, "_fq", None) is None:
+            from .physical.fused import FusedQuery
+
+            self._fq = FusedQuery(self.physical_plan())
+        return self._fq
 
     def to_pandas(self):
         return self.collect().to_pandas()

@@ -286,29 +286,59 @@ def to_device(table: Table, capacity: Optional[int] = None, device=None,
     return DeviceRelation(table.schema, tuple(cols), _tensor(sel, device))
 
 
-def _numpy(t) -> Optional[np.ndarray]:
-    return None if t is None else t.detach().cpu().numpy()
+def _download(tensors: Sequence[Optional[torch.Tensor]]):
+    """(the tensors as numpy arrays, whether those arrays are fresh buffers
+    no one else holds). From a CUDA device: one non-blocking copy each into
+    new pinned host memory, then ONE wait for the stream (the counterpart of
+    the reference's single jax.device_get); a pinned buffer goes back to
+    torch's host cache when its last array dies. On the CPU: views of the
+    tensors themselves."""
+    live = [t for t in tensors if t is not None]
+    if not live or live[0].device.type != "cuda":
+        return [None if t is None else t.detach().numpy() for t in tensors], False
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        out.append(host)
+    torch.cuda.current_stream(live[0].device).synchronize()
+    return [None if h is None else h.numpy() for h in out], True
 
 
 def to_host(rel: DeviceRelation) -> Table:
     """Download a DeviceRelation as a host Table holding only the LIVE rows
-    (in capacity order)."""
-    sel = _numpy(rel.sel)
-    cols: List[HostColumn] = []
-    for f, c in zip(rel.schema.fields, rel.columns):
+    (in capacity order). When the live rows are a prefix of the capacity (a
+    compacted or aggregated result) and the arrays are fresh downloads, the
+    columns are views of them; otherwise boolean indexing copies them."""
+    for c in rel.columns:
         if c.meta is not None:
             raise NotImplementedError(
                 f"column metadata {c.meta!r} is not ported yet")
-        data = _numpy(c.data)
-        v = None if c.validity is None else _numpy(c.validity)[sel]
+    parts = [rel.sel]
+    for c in rel.columns:
+        parts.extend((c.data, c.validity, c.lengths, c.elem_valid))
+    host, fresh = _download(parts)
+    sel = host[0]
+    n = int(np.count_nonzero(sel))
+    if fresh and sel[:n].all():
+        def live(a):
+            return a[:n]
+    else:
+        def live(a):
+            return a[sel]
+    cols: List[HostColumn] = []
+    for i, (f, c) in enumerate(zip(rel.schema.fields, rel.columns)):
+        data, validity, lengths, elem_valid = host[1 + 4 * i:5 + 4 * i]
+        v = None if validity is None else live(validity)
         if f.dtype.is_list:
-            if c.lengths is not None:
-                lengths = _numpy(c.lengths)
-            else:
+            if lengths is None:
                 lengths = np.full(data.shape[0], data.shape[1], dtype=np.int32)
-            ev = (_numpy(c.elem_valid) if c.elem_valid is not None else
+            ev = (elem_valid if elem_valid is not None else
                   np.arange(data.shape[1])[None, :] < lengths[:, None])
-            data2, lengths2, ev2 = data[sel], lengths[sel], ev[sel]
+            data2, lengths2, ev2 = live(data), live(lengths), live(ev)
             rows = np.empty(len(data2), dtype=object)
             for i in range(len(data2)):
                 rows[i] = [data2[i, j].item() if ev2[i, j] else None
@@ -318,7 +348,7 @@ def to_host(rel: DeviceRelation) -> Table:
                     rows[i] = None
             cols.append(HostColumn(f.dtype, rows, v, c.dictionary))
             continue
-        cols.append(HostColumn(f.dtype, data[sel], v, c.dictionary))
+        cols.append(HostColumn(f.dtype, live(data), v, c.dictionary))
     return Table(rel.schema, cols)
 
 

@@ -285,7 +285,8 @@ def dense_groupby_sums(
     if err != 0:
         raise RuntimeError(f"dense_groupby_sums kernel launch failed: CUDA "
                            f"error {err} ({plan})")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1  # a captured launch runs on each replay, uncounted
     sums = out[:, :n_pairs] if n_pairs else torch.zeros(
         (G, 1), dtype=torch.int64, device=seg.device)
     return sums, out[:, n_pairs]

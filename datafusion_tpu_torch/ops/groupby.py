@@ -251,8 +251,10 @@ class SortedSegments:
         self.ssel = ssel
         iota = torch.arange(n, dtype=torch.int32, device=dev)
         # the start rows' indices land at their segment ids (distinct, so the
-        # scatter is deterministic); slot G takes every other row and is cut
-        slot = torch.where(is_start, seg.to(torch.int64), G)
+        # scatter is deterministic); slot G takes every other row, and the
+        # starts of groups past G (a stale capacity in a steady state, which
+        # its overflow flag reports), and is cut
+        slot = torch.where(is_start & (seg < G), seg.to(torch.int64), G)
         starts = torch.zeros(G + 1, dtype=torch.int32, device=dev)
         starts.scatter_(0, slot, iota)
         self.starts = starts[:G]
@@ -529,7 +531,7 @@ def _reduce_one(spec, sa, sf, ssel, seg, is_start, distinct_start, G,
         within = cs - (cs - m)[torch.clamp(start_of, 0, nrows - 1).long()]
         cnt = SCNT(mask)
         if n_ >= 0:
-            want = torch.tensor(n_, dtype=torch.int64, device=dev)
+            want = n_
         else:
             want = torch.clamp(cnt + n_ + 1, min=0)[
                 torch.clamp(seg, 0, G - 1).long()]

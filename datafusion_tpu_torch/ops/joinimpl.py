@@ -218,7 +218,9 @@ def join_direct_exists(probe_keys, build_keys, probe_sel, build_sel,
     for any build-side multiplicity (every write stores True)."""
     bslot, _ = _slots(build_keys, build_sel, spans, domain)
     exists = torch.zeros(domain + 1, dtype=torch.bool, device=bslot.device)
-    exists[bslot] = True
+    # index_fill_ takes the value as a scalar; `exists[bslot] = True` would
+    # copy a host tensor to the card, a host sync
+    exists.index_fill_(0, bslot, True)
     pslot, p_live = _probe_slots(probe_keys, probe_sel, spans, domain)
     return p_live & exists[pslot]
 

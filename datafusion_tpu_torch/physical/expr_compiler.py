@@ -3,8 +3,10 @@
 Port of datafusion_tpu/physical/expr_compiler.py to eager torch ops. Each
 logical Expr evaluates to a DeviceColumn with Arrow-style null semantics
 (three-valued AND/OR, null-propagating arithmetic and comparison); dictionary
-work (string literals, dictionary merges) runs on the host and becomes small
-index tensors on the relation's device.
+work (dictionary merges, string literals, IN lists) runs on the host once per
+dictionary (`dictionary_work`) and becomes small index tensors on the
+relation's device. A comparison of a dictionary column with a string literal
+compares codes with the literal's position in the sorted dictionary.
 
 Ported: columns, literals, aliases, sort keys, numeric/decimal/temporal
 casts, negation, NOT, IS NULL, binary operators (logic, comparison,
@@ -34,10 +36,67 @@ from ..utils import dates as DU
 
 _FUNCTIONS_ITEM = "ROADMAP queue 1, item 9 'Function and nested-type breadth'"
 
-# dictionary-merge memo keyed by identity of the two dictionaries; bounded
-# LRU so long-lived sessions over many files cannot pin dictionaries forever
-_MERGE_CACHE: "collections.OrderedDict" = collections.OrderedDict()
-_MERGE_CACHE_LIMIT = 256
+# Host work over string dictionaries runs once per dictionary, not once per
+# execution: merges, LIKE and IN-list tables, substring remaps, literal
+# dictionaries and literal positions are kept in one bounded LRU keyed by the
+# identities of the dictionaries they read, the operation and its literal
+# arguments. An entry holds its dictionaries, so no other object can take
+# their ids while it lives, and the lookup tables it has copied to each
+# device, so that a steady state (physical/fused.py) finds every table
+# already there: a copy from pageable host memory is a host sync, and
+# illegal inside a CUDA graph capture.
+_DICT_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_DICT_CACHE_LIMIT = 512
+# while set (hold_tables), every lookup table handed out is appended here:
+# a captured CUDA graph reads them at their addresses, so its owner keeps them
+_HOLD: Optional[list] = None
+EMPTY_DICTIONARY = Dictionary(np.array([], dtype=object))
+
+
+class DictionaryWork:
+    """One cached host result over dictionaries (`value`, a tuple) and the
+    per-device copies of its numpy tables."""
+
+    __slots__ = ("dicts", "value", "_tables")
+
+    def __init__(self, dicts, value):
+        self.dicts = dicts
+        self.value = value
+        self._tables = {}
+
+    def table(self, i: int, device) -> torch.Tensor:
+        """value[i], a numpy array, as a tensor on `device` (copied once)."""
+        key = (i, str(device))
+        t = self._tables.get(key)
+        if t is None:
+            t = self._tables[key] = torch.from_numpy(
+                np.ascontiguousarray(self.value[i])).to(device)
+        if _HOLD is not None:
+            _HOLD.append(t)
+        return t
+
+
+def dictionary_work(dicts: Tuple[Dictionary, ...], op: str, args: tuple,
+                    compute) -> DictionaryWork:
+    """The cached DictionaryWork of `op` over `dicts` with literal `args`;
+    `compute()` (returning the value tuple) runs on a miss only."""
+    key = (tuple(id(d) for d in dicts), op, args)
+    hit = _DICT_CACHE.get(key)
+    if hit is not None:
+        _DICT_CACHE.move_to_end(key)
+        return hit
+    work = _DICT_CACHE[key] = DictionaryWork(tuple(dicts), tuple(compute()))
+    while len(_DICT_CACHE) > _DICT_CACHE_LIMIT:
+        _DICT_CACHE.popitem(last=False)
+    return work
+
+
+def hold_tables(sink: Optional[list]) -> Optional[list]:
+    """Append every lookup table handed out from now on to `sink` (None
+    stops); returns the previous sink."""
+    global _HOLD
+    prev, _HOLD = _HOLD, sink
+    return prev
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -45,44 +104,41 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} is not ported to datafusion_tpu_torch yet ({_FUNCTIONS_ITEM})")
 
 
-def merge_dictionaries(a: Dictionary, b: Dictionary):
-    """Merged sorted dictionary + code translation arrays for both inputs.
-    A live cache entry pins its input dictionaries (the key is id()-based)."""
-    key = (id(a), id(b))
-    hit = _MERGE_CACHE.get(key)
-    if hit is not None:
-        _MERGE_CACHE.move_to_end(key)
-        return hit[2:]
-    from ..data.column import as_text_array, is_bytes_values
+def merge_dictionaries(a: Dictionary, b: Dictionary) -> DictionaryWork:
+    """Merged sorted dictionary and the code translation arrays of both
+    inputs: value (merged, amap, bmap)."""
 
-    if is_bytes_values(a.values) or is_bytes_values(b.values):
-        # bytes dictionaries merge in Python (numpy "S" drops trailing NULs)
-        mlist = sorted({bytes(v) for v in a.values}
-                       | {bytes(v) for v in b.values})
-        lut = {v: i for i, v in enumerate(mlist)}
-        amap = np.array([lut[bytes(v)] for v in a.values], dtype=np.int32)
-        bmap = np.array([lut[bytes(v)] for v in b.values], dtype=np.int32)
-        merged = Dictionary(np.array(mlist, dtype=object))
-    else:
+    def compute():
+        from ..data.column import as_text_array, is_bytes_values
+
+        if is_bytes_values(a.values) or is_bytes_values(b.values):
+            # bytes dictionaries merge in Python (numpy "S" drops trailing NULs)
+            mlist = sorted({bytes(v) for v in a.values}
+                           | {bytes(v) for v in b.values})
+            lut = {v: i for i, v in enumerate(mlist)}
+            amap = np.array([lut[bytes(v)] for v in a.values], dtype=np.int32)
+            bmap = np.array([lut[bytes(v)] for v in b.values], dtype=np.int32)
+            return Dictionary(np.array(mlist, dtype=object)), amap, bmap
         av = as_text_array(a.values) if len(a.values) else np.array([], "U1")
         bv = as_text_array(b.values) if len(b.values) else np.array([], "U1")
         m = np.union1d(av, bv)
-        amap = np.searchsorted(m, av).astype(np.int32)
-        bmap = np.searchsorted(m, bv).astype(np.int32)
-        merged = Dictionary(m.astype(object))
-    _MERGE_CACHE[key] = (a, b, merged, amap, bmap)
-    while len(_MERGE_CACHE) > _MERGE_CACHE_LIMIT:
-        _MERGE_CACHE.popitem(last=False)
-    return merged, amap, bmap
+        return (Dictionary(m.astype(object)),
+                np.searchsorted(m, av).astype(np.int32),
+                np.searchsorted(m, bv).astype(np.int32))
+
+    return dictionary_work((a, b), "merge", (), compute)
 
 
-def _translate_codes(col: DeviceColumn, mapping: np.ndarray,
-                     merged: Dictionary) -> DeviceColumn:
+def _translate_codes(col: DeviceColumn, work: DictionaryWork,
+                     i: int) -> DeviceColumn:
+    """col's codes through the translation array work.value[i], onto the
+    merged dictionary work.value[0]."""
+    merged = work.value[0]
     t = col.dtype if col.dtype is not None and col.dtype.is_string else T.STRING
-    if len(mapping) == 0:
+    if len(work.value[i]) == 0:
         return DeviceColumn(torch.zeros_like(col.data), col.validity, t, merged)
-    lut = torch.from_numpy(mapping).to(col.data.device)
-    codes = lut[col.data.clamp(0, len(mapping) - 1).long()]
+    lut = work.table(i, col.data.device)
+    codes = lut[col.data.clamp(0, len(work.value[i]) - 1).long()]
     return DeviceColumn(codes, col.validity, t, merged)
 
 
@@ -98,31 +154,36 @@ def unify_many_string_columns(cols):
         if d is not None and id(d) not in seen:
             seen.add(id(d))
             uniq.append(d)
-    from ..data.column import as_text_array, is_bytes_values
 
-    if any(is_bytes_values(d.values) for d in uniq):
-        mlist = sorted({bytes(v) for d in uniq for v in d.values})
-        lut = {v: i for i, v in enumerate(mlist)}
-        merged = Dictionary(np.array(mlist, dtype=object))
-        maps = {id(d): np.array([lut[bytes(v)] for v in d.values],
-                                dtype=np.int32) for d in uniq}
-    else:
+    def compute():
+        from ..data.column import as_text_array, is_bytes_values
+
+        if any(is_bytes_values(d.values) for d in uniq):
+            mlist = sorted({bytes(v) for d in uniq for v in d.values})
+            lut = {v: i for i, v in enumerate(mlist)}
+            return (Dictionary(np.array(mlist, dtype=object)),
+                    *(np.array([lut[bytes(v)] for v in d.values], dtype=np.int32)
+                      for d in uniq))
         vals = [as_text_array(d.values) for d in uniq if len(d.values)]
         merged_np = (np.unique(np.concatenate(vals)) if vals
                      else np.array([], "U1"))
-        merged = Dictionary(merged_np.astype(object))
-        maps = {}
+        maps = []
         for d in uniq:
             dv = (as_text_array(d.values) if len(d.values)
                   else np.array([], merged_np.dtype))
-            maps[id(d)] = np.searchsorted(merged_np, dv).astype(np.int32)
+            maps.append(np.searchsorted(merged_np, dv).astype(np.int32))
+        return (Dictionary(merged_np.astype(object)), *maps)
+
+    work = dictionary_work(tuple(uniq), "merge_many", (), compute)
+    merged = work.value[0]
+    slot = {id(d): 1 + i for i, d in enumerate(uniq)}
     out = []
     for c in cols:
         if c.dictionary is None:
             out.append(DeviceColumn(torch.zeros_like(c.data), c.validity,
                                     T.STRING, merged))
         else:
-            out.append(_translate_codes(c, maps[id(c.dictionary)], merged))
+            out.append(_translate_codes(c, work, slot[id(c.dictionary)]))
     return out
 
 
@@ -130,10 +191,87 @@ def unify_string_columns(l: DeviceColumn, r: DeviceColumn
                          ) -> Tuple[DeviceColumn, DeviceColumn]:
     if l.dictionary is r.dictionary and l.dictionary is not None:
         return l, r
-    dl = l.dictionary or Dictionary(np.array([], dtype=object))
-    dr = r.dictionary or Dictionary(np.array([], dtype=object))
-    merged, ml, mr = merge_dictionaries(dl, dr)
-    return _translate_codes(l, ml, merged), _translate_codes(r, mr, merged)
+    work = merge_dictionaries(l.dictionary or EMPTY_DICTIONARY,
+                              r.dictionary or EMPTY_DICTIONARY)
+    return _translate_codes(l, work, 1), _translate_codes(r, work, 2)
+
+
+def literal_dictionary(value, binary: bool = False) -> Dictionary:
+    """The one-value dictionary of a string (or bytes) literal, one object
+    per value, so that the merges over it are cached too."""
+    v = bytes(value) if binary else str(value)
+    return dictionary_work((), "literal", (binary, v),
+                           lambda: (Dictionary(np.array([v], dtype=object)),)
+                           ).value[0]
+
+
+def dictionary_text(d: Dictionary) -> np.ndarray:
+    """The dictionary's values as a numpy "U" array (text dictionaries)."""
+    from ..data.column import as_text_array
+
+    return as_text_array(d.values) if len(d.values) else np.array([], "U1")
+
+
+def _string_literal_side(e: E.BinaryOp):
+    """(column side, literal value, op as column OP literal) when e compares
+    an expression with a non-NULL string literal; else None."""
+    mirror = {E.Op.LT: E.Op.GT, E.Op.LE: E.Op.GE, E.Op.GT: E.Op.LT,
+              E.Op.GE: E.Op.LE, E.Op.EQ: E.Op.EQ, E.Op.NEQ: E.Op.NEQ}
+
+    def lit(x):
+        return (isinstance(x, E.Literal) and x.value is not None
+                and x.dtype.is_string and not x.dtype.is_binary)
+
+    if lit(e.right) and not lit(e.left):
+        return e.left, str(e.right.value), e.op
+    if lit(e.left) and not lit(e.right):
+        return e.right, str(e.left.value), mirror[e.op]
+    return None
+
+
+def _is_text_dict(c: DeviceColumn) -> bool:
+    """A dictionary-encoded text (not binary) column."""
+    return (c.dtype.is_string and not c.dtype.is_binary
+            and c.dictionary is not None and c.data.ndim == 1)
+
+
+def _compare_with_literal(c: DeviceColumn, value: str, op) -> DeviceColumn:
+    """A dictionary column compared with a string literal, on its codes: the
+    dictionary is sorted, so the literal's position in it (found once per
+    dictionary and literal) splits the codes into less, equal and greater."""
+    def compute():
+        text = dictionary_text(c.dictionary)
+        return (int(np.searchsorted(text, value, "left")),
+                int(np.searchsorted(text, value, "right")))
+
+    work = dictionary_work((c.dictionary,), "position", (value,), compute)
+    lo, hi = work.value
+    codes = c.data
+    data = {E.Op.EQ: lambda: (codes >= lo) & (codes < hi),
+            E.Op.NEQ: lambda: (codes < lo) | (codes >= hi),
+            E.Op.LT: lambda: codes < lo,
+            E.Op.LE: lambda: codes < hi,
+            E.Op.GT: lambda: codes >= hi,
+            E.Op.GE: lambda: codes >= lo}[op]()
+    return DeviceColumn(data, c.validity, T.BOOL)
+
+
+def _in_string_literals(c: DeviceColumn, values) -> DeviceColumn:
+    """`c IN (literals)` over a dictionary column: a membership table over
+    the dictionary (built once per dictionary and list), one gather."""
+    want = tuple(sorted(set(values)))
+    work = dictionary_work(
+        (c.dictionary,), "in", want,
+        lambda: (np.isin(dictionary_text(c.dictionary),
+                         np.array(want, dtype="U")),))
+    if not len(work.value[0]):
+        data = torch.zeros(c.data.shape[0], dtype=torch.bool, device=c.data.device)
+    else:
+        lut = work.table(0, c.data.device)
+        data = lut[c.data.clamp(0, len(work.value[0]) - 1).long()]
+    if c.validity is not None:
+        data = data & c.validity
+    return DeviceColumn(data, c.validity, T.BOOL)
 
 
 def _combine_validity(*vs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -241,11 +379,11 @@ def _literal_column(e: E.Literal, capacity: int, device) -> DeviceColumn:
         dt = t if t.kind is not T.TypeKind.NULL else T.INT64
         return DeviceColumn(full(0, torch_dtype(dt)), full(False, torch.bool), dt)
     if t.is_binary:
-        d = Dictionary(np.array([bytes(e.value)], dtype=object))
-        return DeviceColumn(full(0, torch.int32), None, T.BINARY, d)
+        return DeviceColumn(full(0, torch.int32), None, T.BINARY,
+                            literal_dictionary(e.value, binary=True))
     if t.is_string:
-        d = Dictionary(np.array([str(e.value)], dtype=object))
-        return DeviceColumn(full(0, torch.int32), None, T.STRING, d)
+        return DeviceColumn(full(0, torch.int32), None, T.STRING,
+                            literal_dictionary(e.value))
     if t.is_decimal:
         raw = int(round(float(e.value) * 10 ** t.scale))
         return DeviceColumn(full(raw, torch.int64), None, t, bounds=(raw, raw))
@@ -482,6 +620,14 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
     if isinstance(e, E.BinaryOp):
         if e.op.is_comparison:
             e = _unwrap_cast_comparison(e, rel.schema)
+            side = _string_literal_side(e)
+            if side is not None:
+                c = eval_expr(side[0], rel)
+                if _is_text_dict(c):
+                    return _compare_with_literal(c, side[1], side[2])
+                l = c if side[0] is e.left else eval_expr(e.left, rel)
+                r = c if side[0] is e.right else eval_expr(e.right, rel)
+                return eval_binary(e, l, r, schema)
         return eval_binary(e, eval_expr(e.left, rel), eval_expr(e.right, rel), schema)
     if isinstance(e, E.Between):
         low = E.BinaryOp(E.Op.GE, e.expr, e.low)
@@ -500,6 +646,13 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
                                       e.args)
     if isinstance(e, E.InList):
         c = eval_expr(e.expr, rel)
+        if _is_text_dict(c) and e.values and all(
+                isinstance(v, E.Literal) and v.value is not None
+                and v.dtype.is_string and not v.dtype.is_binary
+                for v in e.values):
+            acc = _in_string_literals(c, [str(v.value) for v in e.values])
+            return DeviceColumn(~acc.data if e.negated else acc.data,
+                                acc.validity, T.BOOL)
         acc = None
         for v in e.values:
             eq = eval_binary(E.BinaryOp(E.Op.EQ, e.expr, v), c, eval_expr(v, rel), schema)

@@ -9,9 +9,10 @@ function raises NotImplementedError naming its ROADMAP item, at typing
 (planning) time.
 
 String work runs on the host over a column's dictionary (its distinct
-values) and reaches the rows as one gather of a small lookup table copied
-to the column's device: O(distinct) host work and one host-to-device copy
-per call, O(rows) device work.
+values) and reaches the rows as one gather of a small lookup table on the
+column's device. Both are made once per dictionary and cached
+(expr_compiler.dictionary_work): O(distinct) host work and one
+host-to-device copy per dictionary, O(rows) device work per call.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from ..data.column import Dictionary
 from ..data.device import DeviceColumn
 from ..expr import nodes as E
 from ..utils import dates as DU
-from .expr_compiler import _combine_validity, _not_ported, _to_float
+from .expr_compiler import (_combine_validity, _not_ported, _to_float,
+                            dictionary_text, dictionary_work)
 
 _DATE_PARTS = frozenset({"date_part", "extract", "year", "month", "day"})
 _PORTED = frozenset({"power", "pow", "substr", "substring"}) | _DATE_PARTS
@@ -53,48 +55,106 @@ def scalar_function_type(e: E.ScalarFunction, schema: Schema) -> Tuple[T.DataTyp
     return T.FLOAT64, nullable
 
 
+_ARROW_PARSE = {
+    "null": T.NULL, "boolean": T.BOOL, "bool": T.BOOL,
+    "int8": T.INT8, "int16": T.INT16, "int32": T.INT32, "int64": T.INT64,
+    # unsigned widths widen into the next signed type this engine carries
+    "uint8": T.INT16, "uint16": T.INT32, "uint32": T.INT64,
+    "uint64": T.INT64,
+    "float16": T.FLOAT32, "float32": T.FLOAT32, "float64": T.FLOAT64,
+    "utf8": T.STRING, "largeutf8": T.STRING, "utf8view": T.STRING,
+    "binary": T.BINARY, "largebinary": T.BINARY, "binaryview": T.BINARY,
+    "date32": T.DATE32,
+}
+
+
+def parse_arrow_type(s: str) -> T.DataType:
+    """Parse the type-name argument of `arrow_cast` (host-only: the SQL
+    planner folds VALUES cells with it)."""
+    t = s.strip()
+    low = t.lower()
+    if low in _ARROW_PARSE:
+        return _ARROW_PARSE[low]
+    if re.match(r"fixedsizebinary\s*\(\s*\d+\s*\)", low):
+        return T.BINARY  # fixed width is metadata only
+    m = re.match(r"decimal(?:128|256)?\s*\(\s*(\d+)\s*,\s*(\d+)\s*\)", low)
+    if m:
+        return T.decimal(int(m.group(1)), int(m.group(2)))
+    if low.startswith("timestamp"):
+        return T.TIMESTAMP
+    if low.startswith("date64"):
+        return T.DATE32
+    if low.startswith("time32") or low.startswith("time64"):
+        return T.TIME
+    if low.startswith("duration"):
+        return T.INTERVAL_US
+    if low.startswith("interval"):
+        return (T.INTERVAL_MONTHS if "yearmonth" in low.replace(" ", "")
+                else T.INTERVAL_US)
+    m = re.match(r"dictionary\s*\(\s*\w+\s*,\s*(.+)\)\s*$", low)
+    if m:
+        # Dictionary(K, V) casts behave as V: strings are dictionary-encoded
+        # anyway
+        return parse_arrow_type(m.group(1))
+    m = re.match(r"(?:large)?list\s*\(\s*(.+)\)\s*$", low)
+    if m:
+        return T.list_of(parse_arrow_type(m.group(1)))
+    m = re.match(r"fixedsizelist\s*\(\s*(\d+)\s*,\s*(.+)\)\s*$", low)
+    if m:
+        return T.list_of(parse_arrow_type(m.group(2)))
+    raise PlanError(f"arrow_cast: unsupported type {s!r}")
+
+
 # ---------------------------------------------------------------------------
 # dictionary transforms
 # ---------------------------------------------------------------------------
 
 
-def _lookup(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
-    """table[codes] on the codes' device (codes clamped into the table)."""
-    lut = torch.from_numpy(table).to(codes.device)
-    return lut[torch.clamp(codes, 0, len(table) - 1).long()]
+def _gather(work, i: int, codes: torch.Tensor) -> torch.Tensor:
+    """work.value[i][codes] on the codes' device (codes clamped into it)."""
+    lut = work.table(i, codes.device)
+    return lut[torch.clamp(codes, 0, len(work.value[i]) - 1).long()]
 
 
-def _dictionary_text(col: DeviceColumn) -> np.ndarray:
-    d = col.dictionary
-    if d is None or not len(d.values):
-        return np.array([], "U1")
-    return np.asarray(d.values, dtype="U")
-
-
-def transform_dictionary(col: DeviceColumn, values_fn) -> DeviceColumn:
+def transform_dictionary(col: DeviceColumn, op: str, args: tuple,
+                         values_fn) -> DeviceColumn:
     """Apply a host transform over the dictionary's distinct values and
-    re-encode: a new sorted dictionary and a per-row code remap."""
+    re-encode: a new sorted dictionary and a per-row code remap. Cached per
+    (dictionary, op, args): a hit returns the same new Dictionary object, so
+    merges downstream of it are cached too."""
     if col.dictionary is None:
         raise PlanError("string op on non-dictionary column")
     if col.dtype is not None and col.dtype.is_binary:
         raise PlanError("string function not supported on BINARY")
-    new_vals = values_fn(_dictionary_text(col))
-    if not len(new_vals):
+
+    def compute():
+        new_vals = values_fn(dictionary_text(col.dictionary))
+        if not len(new_vals):
+            return Dictionary(np.array([], dtype=object)), np.zeros(0, np.int32)
+        uniq = np.unique(new_vals)
+        return (Dictionary(uniq.astype(object)),
+                np.searchsorted(uniq, new_vals).astype(np.int32))
+
+    work = dictionary_work((col.dictionary,), op, args, compute)
+    new_dict, remap = work.value
+    if not len(remap):
         return DeviceColumn(torch.zeros_like(col.data), col.validity, T.STRING,
-                            Dictionary(np.array([], dtype=object)))
-    uniq = np.unique(new_vals)
-    remap = np.searchsorted(uniq, new_vals).astype(np.int32)
-    return DeviceColumn(_lookup(remap, col.data), col.validity, T.STRING,
-                        Dictionary(uniq.astype(object)))
+                            new_dict)
+    return DeviceColumn(_gather(work, 1, col.data), col.validity, T.STRING,
+                        new_dict)
 
 
-def dict_predicate(col: DeviceColumn, pred_fn) -> torch.Tensor:
+def dict_predicate(col: DeviceColumn, op: str, args: tuple,
+                   pred_fn) -> torch.Tensor:
     """A host predicate over the dictionary's values, as a per-row bool
-    tensor (one lookup-table gather). Used for LIKE."""
-    vals = _dictionary_text(col)
-    if not len(vals):
+    tensor (one lookup-table gather); the table is cached per (dictionary,
+    op, args). Used for LIKE."""
+    if col.dictionary is None or not len(col.dictionary.values):
         return torch.zeros(col.data.shape[0], dtype=torch.bool, device=col.data.device)
-    return _lookup(pred_fn(vals).astype(bool), col.data)
+    work = dictionary_work(
+        (col.dictionary,), op, args,
+        lambda: (pred_fn(dictionary_text(col.dictionary)).astype(bool),))
+    return _gather(work, 0, col.data)
 
 
 def like_to_regex(pattern: str) -> str:
@@ -122,7 +182,7 @@ def eval_like(col: DeviceColumn, pattern: str, case_insensitive: bool = False) -
         return np.fromiter((rx.match(v) is not None for v in vals), dtype=bool,
                            count=len(vals))
 
-    return dict_predicate(col, pred)
+    return dict_predicate(col, "like", (pattern, case_insensitive), pred)
 
 
 # ---------------------------------------------------------------------------
@@ -179,5 +239,6 @@ def eval_scalar_function(fname: str, args: List[DeviceColumn],
         i0 = max(start - 1, 0)
         i1 = None if length is None else i0 + max(length, 0)
         return transform_dictionary(
-            args[0], lambda vals: np.array([v[i0:i1] for v in vals], dtype="U"))
+            args[0], "substring", (i0, i1),
+            lambda vals: np.array([v[i0:i1] for v in vals], dtype="U"))
     raise _not_ported(f"scalar function {fname!r}")

@@ -15,9 +15,14 @@ JoinExec (every join type, residual filters; ops/joinimpl.py).
 Aggregates the kernel cannot take (min/max, filtered or DISTINCT aggregates,
 float sums, order statistics) go through ops/groupby._reduce_one.
 
-Data-dependent output sizes take one host read each: a compaction's live
-count, a sorted aggregate's group count, an expanding join's match total,
-and a direct-address join's duplicate flag.
+Data-dependent output sizes take one host read each when an operator
+executes (discovery): a compaction's live count, a sorted aggregate's group
+count, an expanding join's match total, and a direct-address join's
+duplicate flag. The decision and its application are separate methods
+(CompactExec._apply, AggregateExec._sorted_reduce, JoinExec.execute_rels
+with `flags`), so that a steady state (physical/fused.py) applies the
+discovered decisions without a host read and checks them with device-side
+overflow flags instead.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..common import types as T
-from ..common.errors import PlanError
+from ..common.errors import ExecutionError, PlanError
 from ..common.schema import Field, Schema
 from ..data.device import (DeviceColumn, DeviceRelation, bucket_capacity,
                            is_integer, torch_dtype)
@@ -623,6 +628,11 @@ class AggregateExec(PhysicalPlan):
         num_groups = int(states[0][-1])
         cap = max(bucket_capacity(max(num_groups, 1)), getattr(self, "_last_cap", 0))
         self._last_cap = cap
+        return self._sorted_reduce(states, specs, cap)
+
+    def _sorted_reduce(self, states, specs, cap: int) -> DeviceRelation:
+        """The sort path's reduction into `cap` output slots (groups past
+        `cap` are dropped: callers size it from the group count)."""
         out_keys, out_aggs, out_sel = G.phase_reduce_multi(states, specs, cap)
         cols = [self._coerce_out(c, f)
                 for c, f in zip(list(out_keys) + list(out_aggs), self.schema.fields)]
@@ -724,9 +734,13 @@ class JoinExec(PhysicalPlan):
         rrel = rplan.execute(ctx)
         return self._timed(ctx, self.execute_rels, lrel, rrel)
 
-    def execute_rels(self, lrel: DeviceRelation, rrel: DeviceRelation) -> DeviceRelation:
+    def execute_rels(self, lrel: DeviceRelation, rrel: DeviceRelation,
+                     flags: Optional[list] = None) -> DeviceRelation:
         """Run the join over (probe, build) relations, probe = left after
-        RIGHT-flavour mirroring."""
+        RIGHT-flavour mirroring. With `flags` (a steady state,
+        physical/fused.py) no host read is made: the path and capacity
+        discovered by earlier runs are applied, and a 0-d bool tensor that is
+        True when they no longer hold is appended to `flags`."""
         jt = self.join_type
         swapped = self._swapped()
         if swapped:
@@ -749,7 +763,7 @@ class JoinExec(PhysicalPlan):
             mm = self._residual_minmax(lrel, rrel)
             if mm is not None:
                 return self._run_semi(lrel, rrel, keys, rng, info, mm)
-        return self._run_expand(lrel, rrel, jt, swapped, keys, rng, info)
+        return self._run_expand(lrel, rrel, jt, swapped, keys, rng, info, flags)
 
     @staticmethod
     def _keys(on, lrel, rrel):
@@ -824,11 +838,17 @@ class JoinExec(PhysicalPlan):
         return DeviceRelation(self.schema, lrel.columns,
                               lrel.sel & (~ex if anti else ex))
 
-    def _run_expand(self, lrel, rrel, jt, swapped, keys, rng, info):
+    def _run_expand(self, lrel, rrel, jt, swapped, keys, rng, info, flags=None):
         tried = None
         if jt in (JoinType.INNER, JoinType.LEFT) and info is not None \
                 and self._direct_ok.get(info) is not False:
+            if flags is not None and info not in self._direct_ok:
+                raise ExecutionError("direct join not discovered")
             out, dup = self._direct_impl(lrel, rrel, keys, jt, swapped, info)
+            if flags is not None:
+                flags.append(dup)  # a duplicate build key: rediscover
+                self.path = "direct"
+                return out
             ok = not bool(dup)  # host read
             self._direct_ok[info] = ok
             if ok:
@@ -836,8 +856,14 @@ class JoinExec(PhysicalPlan):
                 return out
             tried = "direct-dup"
         perm, lo, cnt, total = self._phase1(lrel, rrel, keys, rng)
-        co = max(bucket_capacity(max(int(total), 1)), self._last_co)  # host read
-        self._last_co = co
+        if flags is not None:
+            co = self._last_co
+            if not co:
+                raise ExecutionError("join capacity not discovered")
+            flags.append(total > co)
+        else:
+            co = max(bucket_capacity(max(int(total), 1)), self._last_co)  # host read
+            self._last_co = co
         path = "range" if rng is not None else "sort-merge"
         self.path = path if tried is None else f"{tried},{path}"
         return self._expand_impl(lrel, rrel, perm, lo, cnt, jt, swapped, co)

@@ -59,15 +59,19 @@ def add_months(days, months):
     """Calendar month addition with day clamping (SQL interval semantics)."""
     y, m, d = civil_from_days(days)
     if isinstance(y, torch.Tensor) and not isinstance(months, torch.Tensor):
-        months = torch.as_tensor(months, dtype=torch.int64, device=y.device)
-    tot = _cast(y, "int64") * 12 + (_cast(m, "int64") - 1) + _cast(months, "int64")
+        months = int(months)  # a scalar operand: no host-to-device copy
+    else:
+        months = _cast(months, "int64")
+    tot = _cast(y, "int64") * 12 + (_cast(m, "int64") - 1) + months
     ny = _cast(tot // 12, "int32")
     nm = _cast(tot % 12, "int32") + 1
     # clamp day to target month length
     leap = ((ny % 4 == 0) & (ny % 100 != 0)) | (ny % 400 == 0)
     if isinstance(nm, torch.Tensor):
-        mdays = torch.tensor(_MONTH_DAYS, dtype=torch.int32, device=nm.device)
-        maxd = mdays[(nm - 1).long()] + (leap & (nm == 2)).to(torch.int32)
+        # month lengths by arithmetic (31 for odd months up to July and even
+        # ones from August, else 30; February 28 + leap): no table to copy
+        maxd = torch.where(nm == 2, 28 + leap.to(torch.int32),
+                           30 + (nm + nm // 8) % 2)
         nd = torch.minimum(d, maxd)
     else:
         mdays = np.array(_MONTH_DAYS, dtype=np.int32)

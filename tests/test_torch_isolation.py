@@ -22,7 +22,8 @@ VERBATIM = [
     "optimizer/pushdown.py", "optimizer/simplify.py", "data/column.py",
     "data/table.py", "models/tpch/datagen.py", "models/tpch/queries.py",
     "models/tpch/queries_ref.py", "models/tpch/compare.py",
-    "models/h2o/datagen.py", "models/h2o/queries.py",
+    "models/h2o/datagen.py", "models/h2o/queries.py", "native/__init__.py",
+    "native/dictenc.cpp",
 ]
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|datafusion_tpu)\b(?!_torch)", re.M)
@@ -57,7 +58,8 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 @pytest.mark.parametrize("path", VERBATIM)
 def test_verbatim_copy_equals_original(path):
     header, body = (PORT / path).read_text().split("\n", 1)
-    assert header == (f"# Verbatim copy of datafusion_tpu/{path}; host-only, "
+    comment = "//" if path.endswith(".cpp") else "#"
+    assert header == (f"{comment} Verbatim copy of datafusion_tpu/{path}; host-only, "
                       "kept in step with the original.")
     assert body == (ROOT / "datafusion_tpu" / path).read_text()
 

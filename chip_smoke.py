@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (datafusion_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--sf 1] [--h2o-rows 10000000] [--repeat 5]
+    python3 chip_smoke.py [--sf 1] [--h2o-rows 10000000] [--tpcds-sf 24] [--repeat 5]
 
 Run from the repository root on a machine with one CUDA card and nvcc. In
 order, it:
@@ -49,15 +49,29 @@ order, it:
      (torch.cuda.set_sync_debug_mode), and one profile of each (device busy,
      idle share, op families), and the memory reserved after each query;
   8. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
-     K = 100, seed 42) and runs groupby q1-q7, q9 and q10 through the same
-     API -- the second main path -- each checked against a pandas oracle on
-     the same table (floats to rtol 1e-9 / atol 1e-9, the rest exact) with
-     the kernel's launches counted per query (q1, q2 and q4 launch it, on its
-     shared and global routes); checks that q8 (a window query) raises; holds
-     segment min/max on the card against the CPU on NaN, -0.0 and int64
-     extremes; holds the kernel against its plain version at the h2o shapes
-     and times it there as in 5; then runs each query's steady state as in 7;
-  9. prints a {"kernels": [...]} line, the card's name and power limit, and,
+     K = 100, seed 42) and runs groupby q1-q10 through the same API -- the
+     second main path -- each checked against a pandas oracle on the same
+     table (floats to rtol 1e-9 / atol 1e-9, the rest exact; q8, the two
+     largest v3 per id6 through a window top-k, as a multiset) with the
+     kernel's launches counted per query (q1, q2 and q4 launch it, on its
+     shared and global routes); holds segment min/max on the card against
+     the CPU on NaN, -0.0 and int64 extremes; holds the kernel against its
+     plain version at the h2o shapes and times it there as in 5; then runs
+     each query's steady state as in 7;
+  9. TPC-DS (models/tpcds): at generator scale 0.05 runs all 99 queries on
+     the card and on the CPU and fails unless their answers are equal
+     (sqlite_oracle.frames_match, rows as multisets); then at --tpcds-sf
+     (every table on the card) runs each query through the same API --
+     discovery (launch counts reset just before the query and read just
+     after; the kernel's launches with G and route) and its steady state as
+     in 7 (each later answer equal to the discovery answer; a captured
+     graph; at most 2 host syncs per warm collect()), timing and profiling
+     the steady state of TPCDS_TIMED and of the five slowest queries in
+     discovery; holds the kernel against its plain version at every new
+     shape the queries give it and times it there as in 5. Fails if a query
+     raises anything but NotImplementedError naming a ROADMAP item, and
+     prints how many of the 99 run and which do not;
+ 10. prints a {"kernels": [...]} line, the card's name and power limit, and,
      last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA device it exits with code 2 at once.
@@ -82,6 +96,10 @@ import torch
 from datafusion_tpu_torch import Schema, SessionContext, Table
 from datafusion_tpu_torch.models.h2o.datagen import generate_groupby
 from datafusion_tpu_torch.models.h2o.queries import GROUPBY_QUERIES
+from datafusion_tpu_torch.models.tpcds import ALL_QUERY_IDS
+from datafusion_tpu_torch.models.tpcds import query as tpcds_query
+from datafusion_tpu_torch.models.tpcds.datagen import generate_tpcds
+from datafusion_tpu_torch.models.tpcds.sqlite_oracle import frames_match
 from datafusion_tpu_torch.models.tpch import queries_ref
 from datafusion_tpu_torch.models.tpch.compare import LIMIT_QUERIES, frames_diff
 from datafusion_tpu_torch.models.tpch.datagen import generate_tpch
@@ -211,11 +229,18 @@ def profiled_kernel_ms(fn, iters: int, flush: L2Flush, name: str):
                 fn()
         return run
 
-    prof = profiled([ProfilerActivity.CUDA], calls(3), calls(iters))
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
-    # the mean is over the launches the profiler saw; most must be there
-    seen = sum(e.count for e in hits)
+    # a profile now and then comes back without any device event: taken
+    # again, a moment later, up to 6 times (as profile_call)
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.2)
+        prof = profiled([ProfilerActivity.CUDA], calls(3), calls(iters))
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        # the mean is over the launches the profiler saw; most must be there
+        seen = sum(e.count for e in hits)
+        if seen:
+            break
     check(iters // 2 <= seen <= iters,
           f"profiler saw {seen} '{name}' kernels in {iters} calls")
     return sum(e.self_device_time_total for e in hits) / seen / 1e3, seen
@@ -793,7 +818,7 @@ def run_tpch22(ctx, frames, sf: float):
 # ---------------------------------------------------------------------------
 
 H2O_K = 100
-H2O_QUERIES = (1, 2, 3, 4, 5, 6, 7, 9, 10)  # q8 is a window query
+H2O_QUERIES = tuple(range(1, 11))
 # the kernel's launches per query, and its route there: q1 and q4 group by
 # ~100 keys (shared route), q2 by ~10 000 (global route); the others sort
 # or take no kernel-eligible aggregate
@@ -845,19 +870,24 @@ def h2o_oracle(qid: int, x):
     if qid == 10:
         return x.groupby(["id1", "id2", "id3", "id4", "id5", "id6"],
                          as_index=False).agg(v3=("v3", "sum"), cnt=("v1", "size"))
+    if qid == 8:
+        return (x.sort_values("v3", ascending=False).groupby("id6").head(2)
+                [["id6", "v3"]].rename(columns={"v3": "largest2_v3"}))
     raise ValueError(qid)
 
 
 def h2o_compare(qid: int, ours: Table, ref, table: Table) -> None:
     """Multiset equality of our answer and the oracle's: rows matched by
-    their group keys (unique per row), floats to rtol 1e-9 / atol 1e-9, the
-    rest exact. String keys compare as codes of the input's dictionary."""
+    their group keys (unique per row; q8's two rows per id6 also by their
+    value, which the query selects and does not compute), floats to rtol
+    1e-9 / atol 1e-9, the rest exact. String keys compare as codes of the
+    input's dictionary."""
     names = [f.name for f in ours.schema.fields]
     check(names == list(ref.columns), f"h2o q{qid}: columns {names} vs "
                                       f"{list(ref.columns)}")
     check(ours.num_rows == len(ref), f"h2o q{qid}: {ours.num_rows} rows, "
                                      f"oracle {len(ref)}")
-    keys = [n for n in names if n.startswith("id")]
+    keys = [n for n in names if n.startswith("id") or qid == 8]
     cols = {}
     for f, c in zip(ours.schema.fields, ours.columns):
         data = np.asarray(c.data)
@@ -920,9 +950,8 @@ class RecordSortKeys:
 
 
 def run_h2o(ctx, table: Table, frame):
-    """h2o groupby q1-q7, q9, q10 once each through the public API (a new
-    DataFrame: discovery), checked against the pandas oracle; q8 must raise.
-    Returns ({qid: (launches, recorded kernel calls)}, {qid: the oracle's
+    """h2o groupby q1-q10 once each through the public API (a new DataFrame:
+    discovery), checked against the pandas oracle. Returns ({qid: (launches, recorded kernel calls)}, {qid: the oracle's
     answer})."""
     out, refs = {}, {}
     for qid in H2O_QUERIES:
@@ -953,16 +982,9 @@ def run_h2o(ctx, table: Table, frame):
               "sorts_packed": sorts.packed, "sorts_multipass": sorts.multipass,
               "kernel_launches": launches, "kernel_routes": routes,
               "groups": [G for _, _, _, G in rec.calls],
-              "matches_oracle": True})
+              "operators": new_operators(df), "matches_oracle": True})
         out[qid] = (launches, rec.calls)
         refs[qid] = ref
-    try:
-        ctx.sql(GROUPBY_QUERIES[7]).collect()
-        raise RuntimeError("chip_smoke: h2o q8 (a window query) answered")
-    except NotImplementedError as e:
-        check("item 8" in str(e), f"h2o q8 raised without its ROADMAP item: {e}")
-        emit({"h2o_query": "q8", "raises": "NotImplementedError",
-              "message": str(e)})
     return out, refs
 
 
@@ -997,26 +1019,33 @@ def check_segment_extremes(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def fused_query(ctx, label: str, sql: str, same, repeat: int) -> dict:
+def fused_query(ctx, label: str, sql: str, same, repeat: int, timed: bool = True,
+                discovered=None) -> dict:
     """One DataFrame collected three times -- discovery, the capture of its
     steady state (then one replay), a replay -- each answer held by
     `same(table)` against the oracle; the steady state must be a captured
-    CUDA graph. Then, in turns on the same DataFrame, the eager collect()
+    CUDA graph, and one warm fused collect() may make 2 host syncs (its
+    overflow flag and the host copy, or 1 without an overflow guard).
+    `discovered` = (DataFrame, discovery ms, kernel launches) of a DataFrame
+    already collected once takes the place of the first collect(). When
+    `timed`: in turns on the same DataFrame, the eager collect()
     (eager_collect) and the fused one (replay); sql()+collect() on a new
-    DataFrame each time (discovery); the host syncs of one warm collect()
-    each way (the fused one may make 2: its overflow flag and the host
-    copy, or 1 without an overflow guard); and one profile each way, where
-    the replay must launch the dense kernel as often as the steady state's
-    eager run did, which launches it where discovery did (a sub-plan shared
-    by two parents, such as Q15's view, runs once in the steady state)."""
-    df = ctx.sql(sql)
+    DataFrame each time (discovery); the host syncs of the eager collect();
+    and one profile each way, where the replay must launch the dense kernel
+    as often as the steady state's eager run did, which launches it where
+    discovery did (a sub-plan shared by two parents, such as Q15's view,
+    runs once in the steady state)."""
+    if discovered is None:
+        df = ctx.sql(sql)
+        DA.reset_launches()
+        t0 = time.perf_counter()
+        got = df.collect()
+        discovery_ms = (time.perf_counter() - t0) * 1e3
+        same(got)
+        launches = DA.launches
+    else:
+        df, discovery_ms, launches = discovered
     fq = df._fused_query()
-    DA.reset_launches()
-    t0 = time.perf_counter()
-    got = df.collect()
-    discovery_ms = (time.perf_counter() - t0) * 1e3
-    same(got)
-    launches = DA.launches
     # the build runs the steady state once eagerly before capturing it: its
     # launches are what one replay launches (a shared sub-plan, as Q15's
     # view, runs once there and twice in discovery)
@@ -1036,54 +1065,55 @@ def fused_query(ctx, label: str, sql: str, same, repeat: int) -> dict:
     graph = fq._fused
     same(df.collect())
     check(fq._fused is graph, f"{label}: a replay captured the graph again")
-    turns = {"eager": [], "fused": []}
-    for i in range(2 * repeat):
-        name = ("eager", "fused", "fused", "eager")[i % 4]
-        t0 = time.perf_counter()
-        eager_collect(ctx, df) if name == "eager" else df.collect()
-        turns[name].append((time.perf_counter() - t0) * 1e3)
-    full = []
-    for _ in range(repeat):
-        t0 = time.perf_counter()
-        ctx.sql(sql).collect()
-        full.append((time.perf_counter() - t0) * 1e3)
-    syncs = {"eager": host_syncs(lambda: eager_collect(ctx, df)),
-             "fused": host_syncs(df.collect)}
-    check(syncs["fused"] <= 2, f"{label}: {syncs['fused']} host syncs in one "
-                               f"warm fused collect()")
-    expect = ("dense_groupby_sums",) if launches else ()
-    eager = profile_call(f"{label}_eager", lambda: eager_collect(ctx, df), expect)
-    fused = profile_call(f"{label}_fused", df.collect, expect)
-    check(fused["dgs_launches"] == steady_launches,
-          f"{label}: {fused['dgs_launches']} dense kernel launches in one "
-          f"replay, {steady_launches} in the steady state's eager run")
-    check(fq._fused is graph, f"{label}: the graph was captured again")
+    fused_syncs = host_syncs(df.collect)
+    check(fused_syncs <= 2, f"{label}: {fused_syncs} host syncs in one "
+                            f"warm fused collect()")
     out = {"fused_query": label, "graph": True,
            "discovery_ms": discovery_ms, "capture_ms": fq.capture_ms,
-           "second_collect_ms": build_ms,
-           "eager_collect_ms_median": statistics.median(turns["eager"]),
-           "fused_collect_ms_median": statistics.median(turns["fused"]),
-           "sql_collect_ms_median": statistics.median(full),
-           "host_syncs": syncs, "dgs_launches_discovery": launches,
-           "dgs_launches_steady_eager": steady_launches,
-           "dgs_launches_replay": fused["dgs_launches"],
-           "eager_busy_ms": eager["device_busy_ms"],
-           "eager_idle_share": eager["device_idle_share"],
-           "eager_device_ops": eager["device_ops"],
-           "fused_busy_ms": fused["device_busy_ms"],
-           "fused_idle_share": fused["device_idle_share"],
-           "fused_device_ops": fused["device_ops"],
-           "fused_wall_ms": fused["wall_ms"],
-           # the profiler slows the host: busy time against the median of
-           # the unprofiled collect() too
-           "eager_idle_share_vs_median": 1.0 - eager["device_busy_ms"]
-           / statistics.median(turns["eager"]),
-           "fused_idle_share_vs_median": 1.0 - fused["device_busy_ms"]
-           / statistics.median(turns["fused"]),
-           "collect_ms_in_turns": turns, "sql_collect_ms": full,
-           "matches_oracle": True}
-    emit(eager)
-    emit(fused)
+           "second_collect_ms": build_ms, "host_syncs": {"fused": fused_syncs},
+           "dgs_launches_discovery": launches,
+           "dgs_launches_steady_eager": steady_launches, "matches_oracle": True}
+    if timed:
+        turns = {"eager": [], "fused": []}
+        for i in range(2 * repeat):
+            name = ("eager", "fused", "fused", "eager")[i % 4]
+            t0 = time.perf_counter()
+            eager_collect(ctx, df) if name == "eager" else df.collect()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+        full = []
+        for _ in range(repeat):
+            t0 = time.perf_counter()
+            ctx.sql(sql).collect()
+            full.append((time.perf_counter() - t0) * 1e3)
+        out["host_syncs"]["eager"] = host_syncs(lambda: eager_collect(ctx, df))
+        expect = ("dense_groupby_sums",) if launches else ()
+        eager = profile_call(f"{label}_eager", lambda: eager_collect(ctx, df), expect)
+        fused = profile_call(f"{label}_fused", df.collect, expect)
+        check(fused["dgs_launches"] == steady_launches,
+              f"{label}: {fused['dgs_launches']} dense kernel launches in one "
+              f"replay, {steady_launches} in the steady state's eager run")
+        check(fq._fused is graph, f"{label}: the graph was captured again")
+        out.update({
+            "eager_collect_ms_median": statistics.median(turns["eager"]),
+            "fused_collect_ms_median": statistics.median(turns["fused"]),
+            "sql_collect_ms_median": statistics.median(full),
+            "dgs_launches_replay": fused["dgs_launches"],
+            "eager_busy_ms": eager["device_busy_ms"],
+            "eager_idle_share": eager["device_idle_share"],
+            "eager_device_ops": eager["device_ops"],
+            "fused_busy_ms": fused["device_busy_ms"],
+            "fused_idle_share": fused["device_idle_share"],
+            "fused_device_ops": fused["device_ops"],
+            "fused_wall_ms": fused["wall_ms"],
+            # the profiler slows the host: busy time against the median of
+            # the unprofiled collect() too
+            "eager_idle_share_vs_median": 1.0 - eager["device_busy_ms"]
+            / statistics.median(turns["eager"]),
+            "fused_idle_share_vs_median": 1.0 - fused["device_busy_ms"]
+            / statistics.median(turns["fused"]),
+            "collect_ms_in_turns": turns, "sql_collect_ms": full})
+        emit(eager)
+        emit(fused)
     del df, fq, graph
     torch.cuda.empty_cache()
     out["memory_reserved_after"] = torch.cuda.memory_reserved()
@@ -1102,11 +1132,156 @@ def run_fused_tpch(ctx, sf: float, refs, repeat: int) -> None:
     emit({"phase": "fused_tpch", "memory_reserved": torch.cuda.memory_reserved()})
 
 
+# ---------------------------------------------------------------------------
+# 9. TPC-DS
+# ---------------------------------------------------------------------------
+
+# the scale at which every query runs on the card and on the CPU (the JAX
+# package's own TPC-DS test scale)
+TPCDS_CHECK_SF = 0.05
+# steady states timed and profiled, besides the five slowest in discovery
+TPCDS_TIMED = (5, 12, 36, 47, 51, 66, 70, 78, 84, 98)
+TPCDS_REPEAT = 3
+
+
+def new_operators(df) -> list:
+    """The operator kinds of the DataFrame's plan that this slice ported."""
+    kinds, stack = set(), [df.physical_plan()]
+    while stack:
+        p = stack.pop()
+        kinds.add(type(p).__name__)
+        stack.extend(p.children())
+    return sorted(kinds & {"UnionExec", "ValuesExec", "EmptyExec", "WindowExec",
+                           "WindowTopKExec"})
+
+
+def tpcds_session(tables, device=None) -> SessionContext:
+    ctx = SessionContext(device=device)
+    for name, t in tables.items():
+        ctx.register_table(name, t)
+    return ctx
+
+
+def not_ported(qid: int, e: NotImplementedError) -> dict:
+    check("ROADMAP" in str(e), f"TPC-DS q{qid} raised NotImplementedError "
+                               f"without its ROADMAP item: {e}")
+    return {"tpcds_query": f"q{qid}", "raises": "NotImplementedError",
+            "message": str(e)}
+
+
+def run_tpcds_card_vs_cpu(sf: float) -> None:
+    """Every TPC-DS query at generator scale sf on the card and on the CPU;
+    their answers must be equal (frames_match, rows as multisets)."""
+    t0 = time.perf_counter()
+    tables = generate_tpcds(sf)
+    card, cpu = tpcds_session(tables), tpcds_session(tables, "cpu")
+    gen_s = time.perf_counter() - t0
+    ran, raised, nonempty = [], {}, 0
+    for qid in ALL_QUERY_IDS:
+        sql = tpcds_query(qid)
+        try:
+            got = card.sql(sql).to_pandas()
+        except NotImplementedError as e:
+            raised[qid] = not_ported(qid, e)["message"]
+            continue
+        diff = frames_match(got, cpu.sql(sql).to_pandas())
+        check(diff is None, f"TPC-DS q{qid} at scale {sf}: the card differs "
+                            f"from the CPU: {diff}")
+        ran.append(qid)
+        nonempty += len(got) > 0
+    emit({"tpcds_card_vs_cpu": "equal", "sf": sf, "datagen_s": gen_s,
+          "queries_run": len(ran), "nonempty_answers": nonempty,
+          "raised": raised, "s": time.perf_counter() - t0})
+
+
+def run_tpcds(sf: float, repeat: int, shapes: dict, seen: set, iters: int,
+              flush, baseline) -> int:
+    """Every TPC-DS query at generator scale sf through the public API: its
+    discovery (kernel inputs recorded), then its steady state (fused_query,
+    each answer equal to the discovery answer); the kernel held and timed at
+    every new shape. Then the timed steady states. Returns the kernel's
+    launches over the discoveries."""
+    t0 = time.perf_counter()
+    tables = generate_tpcds(sf)
+    ctx = tpcds_session(tables)
+    emit({"tpcds_datagen_s": time.perf_counter() - t0, "sf": sf,
+          "rows": {name: t.num_rows for name, t in tables.items()}})
+    launches, answers, discovery_ms, raised = 0, {}, {}, {}
+    for qid in ALL_QUERY_IDS:
+        sql = tpcds_query(qid)
+        df = ctx.sql(sql)
+        DA.reset_launches()
+        with RecordKernelInputs() as rec:
+            t0 = time.perf_counter()
+            try:
+                got = df.collect()
+            except NotImplementedError as e:
+                line = not_ported(qid, e)
+                raised[qid] = line["message"]
+                emit(line)
+                continue
+            ms = (time.perf_counter() - t0) * 1e3
+        n = DA.launches
+        check(n == len(rec.calls), f"TPC-DS q{qid}: {len(rec.calls)} calls but "
+                                   f"{n} launches")
+        launches += n
+        answers[qid] = got.to_pandas()
+        discovery_ms[qid] = ms
+        emit({"tpcds_query": f"q{qid}", "sf": sf, "rows": got.num_rows,
+              "discovery_ms": ms, "operators": new_operators(df),
+              "kernel_launches": n,
+              "kernel_calls": [{"G": G, "pairs": len(pairs),
+                                "route": DA.kernel_route(G, len(DA.distinct_pairs(pairs)[0]))}
+                               for _, _, pairs, G in rec.calls],
+              "memory_reserved": torch.cuda.memory_reserved()})
+        del got
+
+        def same(t, qid=qid):
+            diff = frames_match(t.to_pandas(), answers[qid])
+            check(diff is None, f"TPC-DS q{qid}: the steady state's answer "
+                                f"differs from discovery's: {diff}")
+
+        emit(fused_query(ctx, f"tpcds_q{qid}", sql, same, repeat, timed=False,
+                         discovered=(df, ms, n)))
+        del df
+        for call in rec.calls:
+            shape = (int(call[0].shape[0]), call[3], len(call[2]))
+            if shape in seen:
+                continue
+            seen.add(shape)
+            t = kernel_timing(call, iters, flush, baseline)
+            t["launches_per_query"] = n
+            label = f"tpcds_q{qid}_G{call[3]}"
+            shapes[label] = t
+            emit({"kernel_timing": KERNEL["name"], "shape": label, **t})
+        del rec
+    slowest = sorted(discovery_ms, key=discovery_ms.get)[-5:]
+    timed = sorted(set(TPCDS_TIMED) | set(slowest))
+    for qid in timed:
+        if qid not in answers:
+            continue
+
+        def same(t, qid=qid):
+            diff = frames_match(t.to_pandas(), answers[qid])
+            check(diff is None, f"TPC-DS q{qid}: a timed run's answer differs "
+                                f"from discovery's: {diff}")
+
+        emit(fused_query(ctx, f"tpcds_q{qid}_timed", tpcds_query(qid), same, repeat))
+    emit({"phase": "tpcds", "sf": sf, "queries_run": len(answers),
+          "not_run": sorted(raised), "raised": raised,
+          "timed": timed, "slowest_in_discovery": slowest,
+          "memory_reserved": torch.cuda.memory_reserved()})
+    check(len(answers) >= 95, f"only {len(answers)} of the 99 TPC-DS queries ran")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
     ap.add_argument("--h2o-rows", type=int, default=10_000_000,
                     help="rows of the h2o groupby table (K = 100)")
+    ap.add_argument("--tpcds-sf", type=float, default=24.0,
+                    help="TPC-DS generator scale (24: store_sales 2,880,000 rows)")
     ap.add_argument("--repeat", type=int, default=5,
                     help="warm end-to-end runs per query")
     ap.add_argument("--iters", type=int, default=50,
@@ -1217,6 +1392,10 @@ def main() -> int:
         emit(fused_query(ctx, f"h2o_q{qid}", GROUPBY_QUERIES[qid - 1], same,
                          args.repeat))
     emit({"phase": "fused_h2o", "memory_reserved": torch.cuda.memory_reserved()})
+
+    run_tpcds_card_vs_cpu(TPCDS_CHECK_SF)
+    launches += run_tpcds(args.tpcds_sf, min(args.repeat, TPCDS_REPEAT), shapes,
+                          seen, args.iters, flush, baseline)
 
     q1 = shapes["q1"]
     emit({"kernels": [{**KERNEL, "launches": launches, "max_abs_err": max_err,

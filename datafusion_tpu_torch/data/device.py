@@ -123,6 +123,12 @@ class DeviceColumn:
     def capacity(self) -> int:
         return int(self.data.shape[0])
 
+    def valid(self) -> torch.Tensor:
+        """The validity mask, all True when the column has none."""
+        if self.validity is not None:
+            return self.validity
+        return torch.ones(self.data.shape[0], dtype=torch.bool, device=self.data.device)
+
     # ---- metadata ----------------------------------------------------------
     def fits_i32(self) -> bool:
         """True when every value (including the 0 padding) provably fits

@@ -9,12 +9,14 @@ relation's device. A comparison of a dictionary column with a string literal
 compares codes with the literal's position in the sorted dictionary.
 
 Ported: columns, literals, aliases, sort keys, numeric/decimal/temporal
-casts, negation, NOT, IS NULL, binary operators (logic, comparison,
+casts, casts of strings to DATE32, TIMESTAMP and TIME (each dictionary value
+parsed once; a comparison of a string with a temporal value casts the string
+side), negation, NOT, IS NULL, binary operators (logic, comparison,
 arithmetic, decimal and date arithmetic), BETWEEN, IN lists, LIKE (a host
 regex over the dictionary, gathered per row), CASE, interval bounds
 propagation and predicates, and the scalar functions physical/functions.py
-has. The other scalar functions and casts to or from strings are not ported
-yet and raise NotImplementedError.
+has. The other scalar functions and the other casts to or from strings are
+not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -74,6 +76,11 @@ class DictionaryWork:
         if _HOLD is not None:
             _HOLD.append(t)
         return t
+
+    def lookup(self, i: int, codes: torch.Tensor) -> torch.Tensor:
+        """value[i][codes] on the codes' device (codes clamped into it)."""
+        lut = self.table(i, codes.device)
+        return lut[torch.clamp(codes, 0, len(self.value[i]) - 1).long()]
 
 
 def dictionary_work(dicts: Tuple[Dictionary, ...], op: str, args: tuple,
@@ -137,9 +144,7 @@ def _translate_codes(col: DeviceColumn, work: DictionaryWork,
     t = col.dtype if col.dtype is not None and col.dtype.is_string else T.STRING
     if len(work.value[i]) == 0:
         return DeviceColumn(torch.zeros_like(col.data), col.validity, t, merged)
-    lut = work.table(i, col.data.device)
-    codes = lut[col.data.clamp(0, len(work.value[i]) - 1).long()]
-    return DeviceColumn(codes, col.validity, t, merged)
+    return DeviceColumn(work.lookup(i, col.data), col.validity, t, merged)
 
 
 def unify_many_string_columns(cols):
@@ -267,8 +272,7 @@ def _in_string_literals(c: DeviceColumn, values) -> DeviceColumn:
     if not len(work.value[0]):
         data = torch.zeros(c.data.shape[0], dtype=torch.bool, device=c.data.device)
     else:
-        lut = work.table(0, c.data.device)
-        data = lut[c.data.clamp(0, len(work.value[0]) - 1).long()]
+        data = work.lookup(0, c.data)
     if c.validity is not None:
         data = data & c.validity
     return DeviceColumn(data, c.validity, T.BOOL)
@@ -324,12 +328,38 @@ def _rescale_decimal(data: torch.Tensor, from_scale: int, to_scale: int) -> torc
     return data // (10 ** (from_scale - to_scale))  # floors, as jnp does
 
 
+# the string casts ported: a lookup table parsed over the dictionary
+_PARSED = (T.TypeKind.DATE32, T.TypeKind.TIMESTAMP, T.TypeKind.TIME)
+
+
+def _parse_strings(col: DeviceColumn, dtype: T.DataType) -> DeviceColumn:
+    """A string column cast to DATE32, TIMESTAMP or TIME: each dictionary
+    value parsed once (cached per dictionary), one gather per row."""
+    d = col.dictionary or EMPTY_DICTIONARY
+
+    def compute():
+        vals = dictionary_text(d)
+        if not len(vals):
+            return (np.zeros(1, np.int32 if dtype.kind is T.TypeKind.DATE32
+                             else np.int64),)
+        if dtype.kind is T.TypeKind.DATE32:
+            return (DU.dates_from_strings(vals),)
+        if dtype.kind is T.TypeKind.TIMESTAMP:
+            return (vals.astype("datetime64[us]").astype(np.int64),)
+        return (DU.times_from_strings(vals),)
+
+    work = dictionary_work((d,), "parse", (dtype.kind.value,), compute)
+    return DeviceColumn(work.lookup(0, col.data), col.validity, dtype)
+
+
 def cast_column(col: DeviceColumn, dtype: T.DataType, capacity: int) -> DeviceColumn:
     if col.dtype == dtype:
         return col
     v = col.validity
     if dtype.is_string and col.dtype.is_string and col.dtype.kind == dtype.kind:
         return col
+    if col.dtype.is_string and not col.dtype.is_binary and dtype.kind in _PARSED:
+        return _parse_strings(col, dtype)
     if dtype.is_string or col.dtype.is_string:
         raise _not_ported(f"cast {col.dtype} -> {dtype}")
     if dtype.is_decimal:
@@ -468,11 +498,13 @@ def eval_binary(e: E.BinaryOp, l: DeviceColumn, r: DeviceColumn, schema: Schema)
         return _eval_logic(op, l, r)
 
     if op.is_comparison:
-        # string vs temporal (the string parsed as a date) and binary vs utf8
-        # need a string cast
+        # string vs temporal: the string side is parsed as the temporal type
         if l.dtype.is_string != r.dtype.is_string and (
                 l.dtype.is_temporal or r.dtype.is_temporal):
-            raise _not_ported(f"comparison of {l.dtype} with {r.dtype}")
+            if l.dtype.is_string:
+                l = cast_column(l, r.dtype, l.data.shape[0])
+            else:
+                r = cast_column(r, l.dtype, r.data.shape[0])
         if l.dtype.is_string or r.dtype.is_string:
             if l.dtype.is_binary != r.dtype.is_binary \
                     and l.dtype.is_string and r.dtype.is_string:
@@ -642,8 +674,11 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
 
         if active_registry().scalar(e.fname) is not None:
             raise _not_ported(f"scalar UDF {e.fname!r}")
+        from ..expr.typing import infer
+
+        out_t, _ = infer(e, schema)
         return F.eval_scalar_function(e.fname, [eval_expr(a, rel) for a in e.args],
-                                      e.args)
+                                      e.args, out_t, cap)
     if isinstance(e, E.InList):
         c = eval_expr(e.expr, rel)
         if _is_text_dict(c) and e.values and all(

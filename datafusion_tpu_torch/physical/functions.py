@@ -1,12 +1,14 @@
 """Scalar functions: typing and device evaluation.
 
-Port of the TPC-H and h2o.ai subset of datafusion_tpu/physical/functions.py:
-`power` / `pow` (h2o q9's `power(corr(v1, v2), 2)`), the date parts
-`date_part` / `extract` / `year` / `month` / `day` of a DATE (TPC-H
-Q7-Q9's `extract(year from ...)`), and `substr` / `substring` on
-dictionary strings (Q22), plus LIKE (`eval_like`). Every other scalar
-function raises NotImplementedError naming its ROADMAP item, at typing
-(planning) time.
+Port of the TPC-H, TPC-DS and h2o.ai subset of
+datafusion_tpu/physical/functions.py: `power` / `pow` (h2o q9's
+`power(corr(v1, v2), 2)`), the date parts `date_part` / `extract` / `year` /
+`month` / `day` of a DATE (TPC-H Q7-Q9), the numeric unary functions (`abs`,
+`round` with one or two arguments, `ceil`, `floor`, `sqrt`, ...),
+`coalesce`, `nullif`, and the string functions `substr` / `substring`,
+`concat` (and `||`), `upper`, `lower` and the trims on dictionary strings,
+plus LIKE (`eval_like`). Every other scalar function raises
+NotImplementedError naming its ROADMAP item, at typing (planning) time.
 
 String work runs on the host over a column's dictionary (its distinct
 values) and reaches the rows as one gather of a small lookup table on the
@@ -23,17 +25,29 @@ import numpy as np
 import torch
 
 from ..common import types as T
-from ..common.errors import PlanError
+from ..common.errors import NotImplementedYet, PlanError
 from ..common.schema import Schema
 from ..data.column import Dictionary
-from ..data.device import DeviceColumn
+from ..data.device import DeviceColumn, torch_dtype
 from ..expr import nodes as E
 from ..utils import dates as DU
 from .expr_compiler import (_combine_validity, _not_ported, _to_float,
-                            dictionary_text, dictionary_work)
+                            dictionary_text, dictionary_work,
+                            unify_many_string_columns, unify_string_columns)
 
 _DATE_PARTS = frozenset({"date_part", "extract", "year", "month", "day"})
-_PORTED = frozenset({"power", "pow", "substr", "substring"}) | _DATE_PARTS
+_NUMERIC_UNARY = frozenset({
+    "abs", "ceil", "floor", "round", "trunc", "sqrt", "cbrt", "exp", "ln",
+    "log10", "log2", "sin", "cos", "tan", "asin", "acos", "atan", "sinh",
+    "cosh", "tanh", "degrees", "radians", "signum", "sign",
+})
+_STRING_UNARY = frozenset({"upper", "lower", "trim", "ltrim", "rtrim", "reverse",
+                           "initcap", "btrim"})
+_PORTED = (frozenset({"power", "pow", "substr", "substring", "concat", "coalesce",
+                      "nullif"})
+           | _DATE_PARTS | _NUMERIC_UNARY | _STRING_UNARY)
+# the dictionary product a concat may build (the reference's cap)
+_CONCAT_CAP = 1 << 18
 
 
 def builtin_function_names() -> set:
@@ -44,14 +58,41 @@ def builtin_function_names() -> set:
 def scalar_function_type(e: E.ScalarFunction, schema: Schema) -> Tuple[T.DataType, bool]:
     from ..expr.typing import infer
 
-    if e.fname not in _PORTED:
-        raise _not_ported(f"scalar function {e.fname!r}")
+    f = e.fname
+    if f not in _PORTED:
+        raise _not_ported(f"scalar function {f!r}")
     argt = [infer(a, schema) for a in e.args]
     nullable = any(n for _, n in argt)
-    if e.fname in _DATE_PARTS:
+    if f in _DATE_PARTS:
         return T.INT64, nullable
-    if e.fname in ("substr", "substring"):
+    if f in _NUMERIC_UNARY:
+        # arity and input type are checked at planning time
+        maxa = 2 if f in ("round", "trunc") else 1
+        if not (1 <= len(argt) <= maxa):
+            raise PlanError(f"{f} expects {'1-2' if maxa == 2 else '1'} "
+                            f"argument(s), got {len(argt)}")
+        t = argt[0][0]
+        if not (t.is_numeric or t.kind is T.TypeKind.NULL):
+            raise PlanError(f"{f} expects a numeric argument, got {t!r}")
+        if f == "abs":
+            return t, nullable
+        if f in ("ceil", "floor", "round", "trunc", "sign", "signum"):
+            return (t if t.is_integer or t.is_decimal else T.FLOAT64), nullable
+        return T.FLOAT64, nullable
+    if f in ("substr", "substring", "concat") or f in _STRING_UNARY:
+        if f == "concat" and any(t.is_binary for t, _ in argt):
+            return T.BINARY, nullable  # one binary operand makes concat binary
         return T.STRING, nullable
+    if f == "coalesce":
+        base = argt[0][0]
+        for t, _ in argt[1:]:
+            if base.is_numeric and t.is_numeric and t != base:
+                base = T.common_numeric_type(base, t)
+            elif base.kind is T.TypeKind.NULL:
+                base = t
+        return base, all(n for _, n in argt)
+    if f == "nullif":
+        return argt[0][0], True
     return T.FLOAT64, nullable
 
 
@@ -110,12 +151,6 @@ def parse_arrow_type(s: str) -> T.DataType:
 # ---------------------------------------------------------------------------
 
 
-def _gather(work, i: int, codes: torch.Tensor) -> torch.Tensor:
-    """work.value[i][codes] on the codes' device (codes clamped into it)."""
-    lut = work.table(i, codes.device)
-    return lut[torch.clamp(codes, 0, len(work.value[i]) - 1).long()]
-
-
 def transform_dictionary(col: DeviceColumn, op: str, args: tuple,
                          values_fn) -> DeviceColumn:
     """Apply a host transform over the dictionary's distinct values and
@@ -140,7 +175,7 @@ def transform_dictionary(col: DeviceColumn, op: str, args: tuple,
     if not len(remap):
         return DeviceColumn(torch.zeros_like(col.data), col.validity, T.STRING,
                             new_dict)
-    return DeviceColumn(_gather(work, 1, col.data), col.validity, T.STRING,
+    return DeviceColumn(work.lookup(1, col.data), col.validity, T.STRING,
                         new_dict)
 
 
@@ -154,7 +189,7 @@ def dict_predicate(col: DeviceColumn, op: str, args: tuple,
     work = dictionary_work(
         (col.dictionary,), op, args,
         lambda: (pred_fn(dictionary_text(col.dictionary)).astype(bool),))
-    return _gather(work, 0, col.data)
+    return work.lookup(0, col.data)
 
 
 def like_to_regex(pattern: str) -> str:
@@ -221,8 +256,169 @@ def _date_part(part: str, datecol: DeviceColumn, validity) -> DeviceColumn:
     return DeviceColumn(val.to(torch.int64), validity, T.INT64, bounds=bounds)
 
 
+def _coerce_to(col: DeviceColumn, dtype: T.DataType) -> torch.Tensor:
+    """col's values in dtype's device representation (decimals rescaled)."""
+    if col.dtype == dtype:
+        return col.data
+    if dtype.is_float:
+        return _to_float(col).to(torch_dtype(dtype))
+    if dtype.is_decimal:
+        if col.dtype.is_decimal:
+            ds = dtype.scale - col.dtype.scale
+            return col.data * (10 ** ds) if ds >= 0 else col.data // (10 ** -ds)
+        return col.data.to(torch.int64) * (10 ** dtype.scale)
+    return col.data.to(torch_dtype(dtype))
+
+
+_FLOAT_UNARY = {
+    "ceil": torch.ceil, "floor": torch.floor, "trunc": torch.trunc,
+    "sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log, "log10": torch.log10,
+    "log2": torch.log2, "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    # half to even, as jnp.round
+    "round": torch.round,
+    "cbrt": lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0),
+}
+
+_STRING_IMPL = {
+    "upper": np.char.upper, "lower": np.char.lower,
+    "trim": np.char.strip, "btrim": np.char.strip,
+    "ltrim": np.char.lstrip, "rtrim": np.char.rstrip,
+    "initcap": np.char.title,
+    "reverse": lambda v: np.array([s[::-1] for s in v], dtype="U"),
+}
+
+
+def _round_digits(a: DeviceColumn, nd: int, validity) -> DeviceColumn:
+    """round(a, nd): decimals and integers exactly in scaled-integer
+    arithmetic, half away from zero; floats through float64, half to even."""
+    if a.dtype.is_decimal or a.dtype.is_integer:
+        s = a.dtype.scale if a.dtype.is_decimal else 0
+        if nd >= s:
+            return DeviceColumn(a.data, validity, a.dtype)
+        q = 10 ** (s - nd)
+        d = a.data.to(torch.int64)
+        out = torch.sign(d) * ((torch.abs(d) + q // 2) // q) * q
+        return DeviceColumn(out.to(a.data.dtype), validity, a.dtype)
+    scale = 10.0 ** nd
+    return DeviceColumn(torch.round(_to_float(a) * scale) / scale, validity, T.FLOAT64)
+
+
+def _numeric_unary(f: str, a: DeviceColumn, validity) -> DeviceColumn:
+    if f == "abs":
+        return DeviceColumn(torch.abs(a.data), validity, a.dtype)
+    if f in ("sign", "signum"):
+        return DeviceColumn(torch.sign(a.data), validity, a.dtype)
+    impl = _FLOAT_UNARY[f]
+    if f in ("ceil", "floor", "round", "trunc") and (a.dtype.is_integer
+                                                    or a.dtype.is_decimal):
+        if a.dtype.is_decimal:
+            s = 10 ** a.dtype.scale
+            out = impl(_to_float(a))
+            return DeviceColumn(torch.round(out * s).to(torch.int64), validity, a.dtype)
+        return DeviceColumn(a.data, validity, a.dtype)
+    return DeviceColumn(impl(_to_float(a)), validity, T.FLOAT64)
+
+
+def _coalesce(args: List[DeviceColumn], out_dtype: T.DataType) -> DeviceColumn:
+    """The first non-NULL argument, left to right."""
+    dictionary = None
+    if out_dtype.is_string:
+        args = unify_many_string_columns(list(args))
+        dictionary = args[0].dictionary
+    data, valid = args[-1].data, args[-1].valid()
+    for c in reversed(args[:-1]):
+        cd = c.data if dictionary is not None else _coerce_to(c, out_dtype)
+        data = torch.where(c.valid(), cd, data)
+        valid = c.valid() | valid
+    all_valid = all(a.validity is None for a in args)
+    return DeviceColumn(data, None if all_valid else valid, out_dtype, dictionary)
+
+
+def _nullif(a: DeviceColumn, b: DeviceColumn) -> DeviceColumn:
+    """NULL where a equals b, else a."""
+    if a.dtype.is_string:
+        ua, ub = unify_string_columns(a, b)
+        eq = ua.data == ub.data
+    else:
+        eq = a.data == _coerce_to(b, a.dtype)
+    valid = a.valid() & ~(eq & a.valid() & b.valid())
+    return DeviceColumn(a.data, valid, a.dtype, a.dictionary)
+
+
+def _concat(args: List[DeviceColumn], arg_exprs: Sequence[E.Expr],
+            capacity: int, validity) -> DeviceColumn:
+    """concat / ||: literals fold into the values on the host; each string
+    column multiplies the composite dictionary (code = base * |d| + code).
+    The product is capped at _CONCAT_CAP: concat of two high-cardinality
+    columns would need a row-wise string kernel. The composite dictionary
+    and its sorted re-encoding are made once per (dictionaries, literals)."""
+    binmode = any(a.dtype is not None and a.dtype.is_binary for a in args)
+    parts, dicts, cols = [], [], []
+    for a, ae in zip(args, arg_exprs):
+        if a.dtype.is_string and a.dictionary is not None and len(a.dictionary.values):
+            parts.append(("col", len(dicts)))
+            dicts.append(a.dictionary)
+            cols.append(a)
+            continue
+        node = ae.expr if isinstance(ae, E.Alias) else ae
+        lit = _literal_value(ae) if isinstance(node, E.Literal) else None
+        if lit is None and a.dtype.is_string:
+            continue  # an empty-dictionary column contributes nothing
+        if lit is None:
+            raise NotImplementedYet("concat of non-string non-literal argument")
+        parts.append(("lit", lit if isinstance(lit, bytes) else str(lit)))
+
+    def as_bytes(v):
+        return v if isinstance(v, bytes) else str(v).encode("utf-8")
+
+    def compute():
+        if binmode:
+            vals = [b""]
+        else:
+            vals = np.array([""], dtype="U1")
+        for kind, v in parts:
+            if kind == "lit":
+                vals = ([x + as_bytes(v) for x in vals] if binmode
+                        else np.char.add(vals, np.array([v], "U")))
+                continue
+            dv = dicts[v].values
+            if len(vals) * len(dv) > _CONCAT_CAP:
+                raise NotImplementedYet(
+                    f"concat dictionary product {len(vals)}x{len(dv)} "
+                    f"exceeds {_CONCAT_CAP}")
+            if binmode:
+                dvl = [as_bytes(x) for x in dv]
+                vals = [x + y for x in vals for y in dvl]
+            else:
+                dvu = np.asarray(dv, dtype="U")
+                vals = np.char.add(np.repeat(vals, len(dvu)), np.tile(dvu, len(vals)))
+        # restore the sorted-unique dictionary invariant
+        if binmode:
+            uniq = sorted(set(vals))
+            lut = {v: i for i, v in enumerate(uniq)}
+            inv = np.array([lut[v] for v in vals], dtype=np.int32)
+            return Dictionary(np.array(uniq, dtype=object)), inv
+        uniq, inv = np.unique(vals, return_inverse=True)
+        return Dictionary(uniq.astype(object)), inv.astype(np.int32)
+
+    work = dictionary_work(tuple(dicts), "concat", (binmode, tuple(parts)), compute)
+    codes = None
+    for a, d in zip(cols, dicts):
+        cc = torch.clamp(a.data, 0, len(d.values) - 1)
+        codes = cc if codes is None else codes * len(d.values) + cc
+    if codes is None:
+        codes = torch.zeros(capacity, dtype=torch.int32,
+                            device=args[0].data.device if args else None)
+    return DeviceColumn(work.lookup(1, codes).to(torch.int32), validity,
+                        T.BINARY if binmode else T.STRING, work.value[0])
+
+
 def eval_scalar_function(fname: str, args: List[DeviceColumn],
-                         arg_exprs: Sequence[E.Expr]) -> DeviceColumn:
+                         arg_exprs: Sequence[E.Expr], out_dtype: T.DataType,
+                         capacity: int) -> DeviceColumn:
     validity = _combine_validity(*(a.validity for a in args))
     if fname in ("power", "pow"):
         return DeviceColumn(torch.pow(_to_float(args[0]), _to_float(args[1])),
@@ -233,6 +429,12 @@ def eval_scalar_function(fname: str, args: List[DeviceColumn],
         else:
             part, datecol = fname, args[0]
         return _date_part(part, datecol, validity)
+    if fname == "round" and len(args) == 2:
+        return _round_digits(args[0], int(_literal_value(arg_exprs[1])), validity)
+    if fname in _NUMERIC_UNARY:
+        return _numeric_unary(fname, args[0], validity)
+    if fname in _STRING_UNARY:
+        return transform_dictionary(args[0], fname, (), _STRING_IMPL[fname])
     if fname in ("substr", "substring"):
         start = int(_literal_value(arg_exprs[1]))
         length = int(_literal_value(arg_exprs[2])) if len(arg_exprs) > 2 else None
@@ -241,4 +443,10 @@ def eval_scalar_function(fname: str, args: List[DeviceColumn],
         return transform_dictionary(
             args[0], "substring", (i0, i1),
             lambda vals: np.array([v[i0:i1] for v in vals], dtype="U"))
+    if fname == "concat":
+        return _concat(args, arg_exprs, capacity, validity)
+    if fname == "coalesce":
+        return _coalesce(args, out_dtype)
+    if fname == "nullif":
+        return _nullif(args[0], args[1])
     raise _not_ported(f"scalar function {fname!r}")

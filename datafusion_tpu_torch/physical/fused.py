@@ -14,7 +14,8 @@ Two-phase adaptive execution, one FusedQuery per DataFrame:
      a walker (_trace) applies the recorded decisions without reading the
      host, and every decision appends a 0-d bool overflow flag (live rows
      past a compaction's capacity, groups past a sorted aggregate's, matches
-     past a join's expansion, a duplicate key under a direct join). The
+     past a join's expansion, a duplicate key under a direct join,
+     survivors past a window top-k's capacity). The
      flags reduce to one tensor on the device, read once per execute() (a
      plan without a guard reads nothing). On a CUDA device the steady
      state is run once on a side stream (which also copies every dictionary
@@ -34,8 +35,10 @@ walker as in the reference; `JoinExec.path` and the dense kernel's launch
 count are set at discovery and at capture, and a replay leaves them as they
 are (the profiler sees the replayed kernels).
 
-A graph reads its inputs at the addresses it was captured with: the scan
-relations it was captured on are kept, and every execute() compares their
+A graph reads its inputs at the addresses it was captured with. The leaves
+(scans, VALUES and empty relations) run outside the graph; VALUES and empty
+relations are made once per device and kept by their nodes. The leaf
+relations a graph was captured on are kept, and every execute() compares their
 tensors with the scans' current ones and captures again when they differ.
 The lookup tables the graph reads are kept with it (expr_compiler.
 hold_tables). Its outputs are packed into one buffer inside the graph and
@@ -57,6 +60,7 @@ from . import plan as P
 from .planner import AliasExec
 
 _LEAF_PARTS = ("data", "validity", "lengths", "elem_valid")
+_LEAVES = (P.ScanExec, P.ValuesExec, P.EmptyExec)
 _ALIGN = 16  # bytes: every packed output starts on a 16-byte boundary
 
 
@@ -82,7 +86,7 @@ class FusedQuery:
         self.capture_ms: Optional[float] = None  # host ms of the last build
 
     def _collect_leaves(self, p: P.PhysicalPlan, out: List[P.PhysicalPlan]):
-        if isinstance(p, P.ScanExec):
+        if isinstance(p, _LEAVES):
             if p not in out:
                 out.append(p)
             return
@@ -98,6 +102,7 @@ class FusedQuery:
         "CompactExec": ("_decision",),
         "AggregateExec": ("_last_cap",),
         "JoinExec": ("_direct_ok", "_last_co"),
+        "WindowTopKExec": ("_last_cap",),
     }
 
     def _nodes_preorder(self):
@@ -318,11 +323,23 @@ def _trace(p: P.PhysicalPlan, inputs, leaf_index, tctx) -> DeviceRelation:
 
 
 def _trace_inner(p: P.PhysicalPlan, inputs, leaf_index, tctx) -> DeviceRelation:
-    if isinstance(p, P.ScanExec):
+    from .window import WindowExec, WindowTopKExec
+
+    if isinstance(p, _LEAVES):
         return inputs[leaf_index[id(p)]]
     if isinstance(p, (P.FilterExec, P.ProjectionExec, P.LimitExec, P.SortExec,
-                      P.DistinctExec)):
+                      P.DistinctExec, WindowExec)):
         return p._transform(_trace(p.input, inputs, leaf_index, tctx))
+    if isinstance(p, P.UnionExec):
+        return p._transform([_trace(c, inputs, leaf_index, tctx) for c in p.inputs])
+    if isinstance(p, WindowTopKExec):
+        rel = _trace(p.input, inputs, leaf_index, tctx)
+        cap = p._last_cap
+        if cap is None:
+            raise ExecutionError("window top-k capacity not discovered")
+        perm, rank, keep = p._phase1(rel)
+        tctx.flags.append(keep.sum() > cap)
+        return p._apply(rel, perm, rank, keep, cap)
     if isinstance(p, P.CompactExec):
         rel = _trace(p.input, inputs, leaf_index, tctx)
         d = p._decision

@@ -6,6 +6,8 @@ are order-preserving; the sort path sorts by the keys), and DISTINCT its
 rows ascending by every column, so a SortExec over the same keys -- TPC-H
 Q1's ORDER BY -- is planned as presorted and costs nothing. Inner joins
 emit matched rows in probe order, and semi/anti joins mask their probe side.
+A window keeps its input's row order; a window top-k emits its survivors
+sorted by (partition keys, rank, order keys).
 Orderings are (schema_index, asc, nulls_first) prefixes over each operator's
 own output schema.
 """
@@ -21,6 +23,7 @@ Ordering = List[Tuple[int, bool, bool]]
 
 def output_ordering(p: P.PhysicalPlan) -> Optional[Ordering]:
     from .planner import AliasExec
+    from .window import WindowExec, WindowTopKExec
 
     if isinstance(p, P.AggregateExec):
         if not p.group_exprs:
@@ -40,6 +43,31 @@ def output_ordering(p: P.PhysicalPlan) -> Optional[Ordering]:
         return out or None
     if isinstance(p, (P.FilterExec, P.LimitExec, P.CompactExec, AliasExec)):
         return output_ordering(p.input)
+    if isinstance(p, WindowExec):
+        # window results are gathered back to the input's row order
+        inner = output_ordering(p.input)
+        if inner is None:
+            return None
+        n = len(p.input.schema)
+        return [o for o in inner if o[0] < n] or None
+    if isinstance(p, WindowTopKExec):
+        # survivors come out in (partition asc nulls last, order spec) order;
+        # the rank column may be claimed before the order keys, since equal
+        # ranks imply equal order keys (peers): [pcols, rank, ocols]
+        w = p.wfn
+        out: Ordering = []
+        for pe in w.partition_by:
+            idx = _column_index(pe, p.input.schema)
+            if idx is None:
+                return out or None
+            out.append((idx, True, False))
+        out.append((len(p.schema) - 1, True, False))
+        for s in w.order_by:
+            idx = _column_index(s.expr, p.input.schema)
+            if idx is None:
+                return out or None
+            out.append((idx, s.asc, s.nulls_first))
+        return out
     if isinstance(p, P.ProjectionExec):
         inner = output_ordering(p.input)
         if inner is None:

@@ -10,8 +10,9 @@ sort rows by their group keys (ops/groupby.py).
 
 Ported: ScanExec, FilterExec, ProjectionExec, LimitExec, SortExec (with
 fetch = TopK, and the presorted elision), CompactExec, DistinctExec,
-AggregateExec's global, dense and sort-based paths (ops/groupby.py), and
-JoinExec (every join type, residual filters; ops/joinimpl.py).
+AggregateExec's global, dense and sort-based paths (ops/groupby.py),
+JoinExec (every join type, residual filters; ops/joinimpl.py), UnionExec,
+ValuesExec and EmptyExec. The window operators are in physical/window.py.
 Aggregates the kernel cannot take (min/max, filtered or DISTINCT aggregates,
 float sums, order statistics) go through ops/groupby._reduce_one.
 
@@ -35,7 +36,8 @@ from ..common import types as T
 from ..common.errors import ExecutionError, PlanError
 from ..common.schema import Field, Schema
 from ..data.device import (DeviceColumn, DeviceRelation, bucket_capacity,
-                           is_integer, torch_dtype)
+                           empty_relation, is_integer, resolve_device,
+                           to_device, torch_dtype)
 from ..expr import nodes as E
 from ..logical.plan import JoinType
 from ..ops import dense_agg as DA
@@ -964,14 +966,15 @@ class JoinExec(PhysicalPlan):
 
 
 def concat_relations(rels: List[DeviceRelation], schema: Schema) -> DeviceRelation:
-    """Concatenate relations (the blocks of an outer join). String columns
-    are re-encoded onto one merged dictionary when theirs differ."""
+    """Concatenate relations (the blocks of an outer join, the inputs of a
+    UNION). String columns are re-encoded onto one merged dictionary when
+    theirs differ."""
     out_cols = []
     for i, f in enumerate(schema.fields):
         cols = [r.columns[i] for r in rels]
         if f.dtype.is_list:
             raise NotImplementedError(
-                "list columns through an outer join are not ported to "
+                "list columns through an outer join or a UNION are not ported to "
                 "datafusion_tpu_torch yet (ROADMAP queue 1, item 9 "
                 "'Function and nested-type breadth')")
         if f.dtype.is_string:
@@ -984,9 +987,75 @@ def concat_relations(rels: List[DeviceRelation], schema: Schema) -> DeviceRelati
             data = data.to(want)
         validity = None
         if any(c.validity is not None for c in cols):
-            validity = torch.cat([c.validity if c.validity is not None
-                                  else torch.ones(c.capacity, dtype=torch.bool,
-                                                  device=c.data.device)
-                                  for c in cols])
+            validity = torch.cat([c.valid() for c in cols])
         out_cols.append(DeviceColumn(data, validity, f.dtype, cols[0].dictionary))
     return DeviceRelation(schema, tuple(out_cols), torch.cat([r.sel for r in rels]))
+
+
+class UnionExec(PhysicalPlan):
+    """UNION ALL: the inputs' relations one after another (capacities add
+    up; each input keeps its selection mask)."""
+
+    def __init__(self, inputs: Sequence[PhysicalPlan], schema: Schema):
+        self.inputs = list(inputs)
+        self.schema = schema
+
+    def children(self):
+        return tuple(self.inputs)
+
+    def _transform(self, rels: Sequence[DeviceRelation]) -> DeviceRelation:
+        return concat_relations(list(rels), self.schema)
+
+    def execute(self, ctx: ExecContext) -> DeviceRelation:
+        rels = [p.execute(ctx) for p in self.inputs]
+        return self._timed(ctx, self._transform, rels)
+
+
+class _ConstantLeaf(PhysicalPlan):
+    """A leaf whose relation is made from the plan alone: made once per
+    device and kept, so every execution (and a CUDA graph captured over it)
+    reads the same tensors and dictionaries."""
+
+    def __init__(self, schema: Schema):
+        self.schema = schema
+        self._rels: Dict[str, DeviceRelation] = {}  # device -> relation
+
+    def execute(self, ctx: ExecContext) -> DeviceRelation:
+        device = resolve_device(ctx.device)
+        key = str(device)
+        if key not in self._rels:
+            self._rels[key] = self._make(device)
+        return self._rels[key]
+
+    def _make(self, device) -> DeviceRelation:
+        raise NotImplementedError
+
+
+class ValuesExec(_ConstantLeaf):
+    def __init__(self, schema: Schema, rows: List[List[E.Literal]]):
+        super().__init__(schema)
+        self.rows = rows
+
+    def _make(self, device) -> DeviceRelation:
+        from ..data.table import Table
+
+        data = {f.name: [r[i].value for r in self.rows]
+                for i, f in enumerate(self.schema.fields)}
+        t = Table.from_pydict(data, {f.name: f.dtype for f in self.schema.fields})
+        rel = to_device(t, device=device)
+        return DeviceRelation(self.schema, rel.columns, rel.sel)
+
+
+class EmptyExec(_ConstantLeaf):
+    """No rows, or (one_row) the one row of a FROM-less SELECT, every column
+    NULL."""
+
+    def __init__(self, schema: Schema, one_row: bool = True):
+        super().__init__(schema)
+        self.one_row = one_row
+
+    def _make(self, device) -> DeviceRelation:
+        rel = empty_relation(self.schema, device)
+        if self.one_row:
+            rel = rel.with_sel(torch.arange(rel.capacity, device=rel.device) == 0)
+        return rel

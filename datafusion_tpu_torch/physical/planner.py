@@ -1,12 +1,13 @@
 """Physical planner: LogicalPlan -> PhysicalPlan.
 
 Port of datafusion_tpu/physical/planner.py for the node kinds this package
-executes: scans, filters, projections, aggregates, DISTINCT, sorts, limits,
-aliases and joins (cross joins and scalar subqueries as joins on a constant
-key, one inequality between the sides as a range join). Every other node
-kind raises NotImplementedError naming the ROADMAP item that ports it, so an
-unsupported query fails at planning time instead of returning a wrong
-answer."""
+executes: scans, filters (a rank filter over a window as a per-partition
+top-k), projections, aggregates, DISTINCT, sorts, limits, aliases, joins
+(cross joins and scalar subqueries as joins on a constant key, one
+inequality between the sides as a range join), UNION ALL, VALUES, empty
+relations and windows. Every other node kind raises NotImplementedError
+naming the ROADMAP item that ports it, so an unsupported query fails at
+planning time instead of returning a wrong answer."""
 from __future__ import annotations
 
 from ..common.errors import PlanError
@@ -17,11 +18,7 @@ from . import plan as P
 
 # logical node kind -> the ROADMAP item (queue 1) that ports its operator
 _NOT_PORTED = {
-    L.Window: "item 8 'physical/window.py'",
     L.Unnest: "item 9 'Function and nested-type breadth'",
-    L.Union: "item 12 'Remaining surface'",
-    L.Values: "item 12 'Remaining surface'",
-    L.EmptyRelation: "item 12 'Remaining surface'",
     L.RecursiveQuery: "item 12 'Remaining surface'",
 }
 
@@ -73,7 +70,11 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
     if isinstance(plan, L.Projection):
         return P.ProjectionExec(child(plan.input), plan.proj_exprs, plan.schema)
     if isinstance(plan, L.Filter):
-        return P.FilterExec(child(plan.input), plan.predicate)
+        from .window import rewrite_window_topk
+
+        f = P.FilterExec(child(plan.input), plan.predicate)
+        tk = rewrite_window_topk(f)
+        return tk if tk is not None else f
     if isinstance(plan, L.Aggregate):
         _reject_list_keys(plan.group_exprs, plan.input.schema, "GROUP BY")
         inp = child(plan.input)
@@ -106,6 +107,17 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
                            for f in plan.input.schema.fields],
                           plan.input.schema, "DISTINCT")
         return P.DistinctExec(_maybe_compact(child(plan.input)))
+    if isinstance(plan, L.Union):
+        return P.UnionExec([child(p) for p in plan.inputs], plan.schema)
+    if isinstance(plan, L.Values):
+        return P.ValuesExec(plan.schema, plan.rows)
+    if isinstance(plan, L.EmptyRelation):
+        return P.EmptyExec(plan.schema, plan.produce_one_row)
+    if isinstance(plan, L.Window):
+        from .window import WindowExec
+
+        return WindowExec(_maybe_compact(child(plan.input)), plan.window_exprs,
+                          plan.schema)
     for kind, item in _NOT_PORTED.items():
         if isinstance(plan, kind):
             raise NotImplementedError(
@@ -208,13 +220,16 @@ def _cross_join(left: P.PhysicalPlan, right: P.PhysicalPlan, plan: L.Join) -> P.
 
 
 def _single_row(p: L.LogicalPlan) -> bool:
-    """Provably at most one row: an ungrouped aggregate or LIMIT 1 (VALUES
-    and empty relations, which the reference also counts, do not plan in
-    this package yet)."""
+    """Provably at most one row: an ungrouped aggregate, a one-row VALUES,
+    a one-row empty relation or LIMIT 1."""
     while isinstance(p, (L.Projection, L.SubqueryAlias)):
         p = p.input
     if isinstance(p, L.Aggregate):
         return len(p.group_exprs) == 0
+    if isinstance(p, L.Values):
+        return len(p.rows) == 1
+    if isinstance(p, L.EmptyRelation):
+        return bool(getattr(p, "produce_one_row", False))
     if isinstance(p, L.Limit):
         return p.fetch is not None and p.fetch <= 1
     return False

@@ -50,6 +50,7 @@ def validate_plan(plan: P.PhysicalPlan) -> None:
 
 def _walk(p: P.PhysicalPlan, errors: List[str]) -> None:
     from .planner import AliasExec
+    from .window import WindowExec
 
     for c in p.children():
         _walk(c, errors)
@@ -101,7 +102,18 @@ def _walk(p: P.PhysicalPlan, errors: List[str]) -> None:
         if len(p.schema) != want:
             errors.append(f"{name} ({p.join_type.value}): schema has "
                           f"{len(p.schema)} columns, expected {want}")
+    elif isinstance(p, P.UnionExec):
+        for c in p.inputs:
+            if len(c.schema) != len(p.schema):
+                errors.append(
+                    f"{name}: input with {len(c.schema)} columns vs "
+                    f"{len(p.schema)}-column union schema")
     elif isinstance(p, AliasExec):
         if len(p.schema) != len(p.input.schema):
             errors.append(f"{name}: column count changed "
                           f"{len(p.input.schema)} -> {len(p.schema)}")
+    elif isinstance(p, WindowExec):
+        want = len(p.input.schema) + len(p.window_exprs)
+        if len(p.schema) != want:
+            errors.append(f"{name}: schema has {len(p.schema)} columns, "
+                          f"expected {want}")

@@ -164,20 +164,91 @@ def test_dates_accept_numpy_and_tensors():
     assert np.array_equal(PDU.days_from_civil(*PDU.civil_from_days(days)), days)
 
 
-@pytest.mark.parametrize("what", ["string_function", "date_trunc", "string_vs_date",
+@pytest.mark.parametrize("what", ["string_function", "date_trunc", "string_to_number",
                                   "function", "string_cast"])
 def test_unported_expressions_raise(what):
     rel = TD.to_device(PTable.from_pydict({"s": ["a", "b"], "x": [1, 2]}), device="cpu")
     e = {
-        "string_function": E.ScalarFunction("upper", (E.Column("s"),)),
+        "string_function": E.ScalarFunction("md5", (E.Column("s"),)),
         "date_trunc": E.ScalarFunction("date_trunc", (E.lit("month"), E.Column("x"))),
-        "string_vs_date": E.BinaryOp(E.Op.LT, E.Column("s"),
-                                     E.Literal("1995-01-01", T.DATE32)),
-        "function": E.ScalarFunction("abs", (E.Column("x"),)),
+        "string_to_number": E.Cast(E.Column("s"), T.INT64),
+        "function": E.ScalarFunction("atan2", (E.Column("x"), E.Column("x"))),
         "string_cast": E.Cast(E.Column("x"), T.STRING),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PX.eval_expr(e, rel)
+
+
+# .5 ties of both signs, at one and two decimal digits
+_TIES = {"q": [-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, -0.25, 0.25, 1.25, -1.35, None, 0.0],
+         "f": [-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, -0.25, 0.25, 1.25, -1.35, None, 0.125],
+         "n": [-25, -15, -5, 5, 15, 25, 35, -35, 0, 7, None, 1],
+         "s": ["1995-01-01", "1994-12-31", "1995-1-2", None, "2000-02-29", "1970-01-01",
+               "1969-12-31", "1995-01-01", "1996-06-30", "1995-01-02", "1995-03-15",
+               "1995-01-01"],
+         "day": [9131, 9130, 9132, 9131, 0, -1, 11016, 9131, 9131, 9500, 9204, None]}
+
+
+def _ties_pair():
+    def types(Ty):
+        return {"q": Ty.decimal(7, 2), "f": Ty.FLOAT64, "n": Ty.INT64,
+                "s": Ty.STRING, "day": Ty.DATE32}
+    return (JD.to_device(JTable.from_pydict(_TIES, types(JT))),
+            TD.to_device(PTable.from_pydict(_TIES, types(T)), device="cpu"))
+
+
+def _ported_expr(N, Ty, case):
+    s, t, d, i, day = (N.Column(c) for c in ("s", "t", "d", "i", "day"))
+    q, f, n = (N.Column(c) for c in ("q", "f", "n"))
+
+    def fn(name, *args):
+        return N.ScalarFunction(name, tuple(args))
+
+    return {
+        "upper": fn("upper", s), "lower": fn("lower", t), "trim": fn("btrim", s),
+        "abs_int": fn("abs", i), "abs_decimal": fn("abs", d),
+        "ceil_decimal": fn("ceil", d), "floor_decimal": fn("floor", d),
+        "sign_int": fn("signum", i),
+        "coalesce_ints": fn("coalesce", i, N.lit(-1)),
+        "coalesce_decimals": fn("coalesce", d, N.BinaryOp(N.Op.MUL, d, d)),
+        "coalesce_strings": fn("coalesce", s, t, N.lit("none")),
+        "nullif_int": fn("nullif", i, N.lit(3)),
+        "nullif_strings": fn("nullif", s, t),
+        "concat": fn("concat", N.lit("<"), s, N.lit("|"), t, N.lit(7)),
+        "string_vs_date": N.BinaryOp(N.Op.LT, N.Literal("1995-01-01", Ty.STRING), day),
+        "date_between_strings": N.Between(day, N.lit("1994-12-31"), N.lit("1995-06-01")),
+        "round_decimal": fn("round", q),
+        "round_decimal_1": fn("round", q, N.lit(1)),
+        "round_decimal_0": fn("round", q, N.lit(0)),
+        "round_int_digits": fn("round", n, N.lit(-1)),
+        "round_float": fn("round", f),
+        "round_float_2": fn("round", f, N.lit(2)),
+        "string_column_vs_date": N.BinaryOp(N.Op.EQ, s, day),
+        "cast_string_date": N.Cast(s, Ty.DATE32),
+    }[case]
+
+
+_ROW_CASES = ["upper", "lower", "trim", "abs_int", "abs_decimal", "ceil_decimal",
+              "floor_decimal", "sign_int", "coalesce_ints",
+              "coalesce_decimals", "coalesce_strings", "nullif_int",
+              "nullif_strings", "concat"]
+_TIE_CASES = ["string_vs_date", "date_between_strings", "round_decimal",
+              "round_decimal_1", "round_decimal_0", "round_int_digits",
+              "round_float", "round_float_2", "string_column_vs_date",
+              "cast_string_date"]
+
+
+@pytest.mark.parametrize("case", _ROW_CASES + _TIE_CASES)
+def test_ported_functions_match_jax(case):
+    """The TPC-DS function subset, string-to-date comparison and rounding
+    (.5 ties of both signs) against the JAX package, slot by slot, exactly."""
+    jrel, prel = _ties_pair() if case in _TIE_CASES else _rel_pair()
+    got = PX.eval_expr(_ported_expr(E, T, case), prel)
+    want = JX.eval_expr(_ported_expr(JE, JT, case), jrel)
+    _same_column(got, want)
+    assert (got.dictionary is None) == (want.dictionary is None)
+    if want.dictionary is not None:
+        assert list(got.dictionary.values) == list(want.dictionary.values)
 
 
 # ---------------------------------------------------------------------------

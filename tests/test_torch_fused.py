@@ -348,10 +348,19 @@ def test_with_recursive_raises_not_implemented():
 
 
 def test_values_with_arrow_cast_reaches_the_planner():
+    """VALUES holding arrow_cast plans, runs and equals the reference; its
+    relation is made once and kept (the steady state reads it again)."""
+    from datafusion_tpu.context import SessionContext as JaxSession
+
+    sql = ("SELECT x, y, x + 1 AS z FROM (VALUES (arrow_cast(1, 'Int8'), 'a'), "
+           "(arrow_cast(-3, 'Int8'), 'b')) AS t(x, y) ORDER BY y")
     ctx = SessionContext(device="cpu")
-    with pytest.raises(NotImplementedError, match="Values .*item 12"):
-        ctx.sql("SELECT x FROM (VALUES (arrow_cast(1, 'Int8'), 'a')) "
-                "AS t(x, y)").collect()
+    df = ctx.sql(sql)
+    got = [df.to_pydict() for _ in range(3)]
+    assert got[0] == got[1] == got[2] == JaxSession().sql(sql).to_pydict()
+    leaf = df._fused_query().leaves[0]
+    assert isinstance(leaf, P.ValuesExec)
+    assert leaf.execute(ctx.exec_context()) is leaf.execute(ctx.exec_context())
 
 
 _ARROW_NAMES = sorted(F._ARROW_PARSE) + [
@@ -389,6 +398,21 @@ def _card():
     # the dense kernel's path
     "SELECT a.k % 5 AS m, sum(v) AS sv, count(*) AS n FROM a GROUP BY a.k % 5 "
     "ORDER BY m",
+    # a union of a filtered scan, another table and VALUES
+    "SELECT k, sum(v) AS sv FROM (SELECT k, v FROM a WHERE v > 7 UNION ALL "
+    "SELECT j AS k, k AS v FROM b UNION ALL SELECT * FROM (VALUES (1, 2), (3, 4)) "
+    "AS t(k, v)) u GROUP BY k ORDER BY k",
+    # a window: ranks, a running sum, a framed max (the doubling scan and
+    # the range reduction), lag
+    "SELECT k, v, rank() OVER (PARTITION BY k ORDER BY v) AS r, "
+    "sum(v) OVER (PARTITION BY k ORDER BY v) AS s, "
+    "max(v) OVER (PARTITION BY k % 7 ORDER BY v, k) AS mx, "
+    "min(v) OVER (PARTITION BY k ORDER BY v ROWS BETWEEN 3 PRECEDING AND 1 FOLLOWING) AS mn, "
+    "lag(v, 2, -1) OVER (PARTITION BY k ORDER BY v) AS lg FROM a WHERE v < 8 "
+    "ORDER BY k, v, r, s, mx, mn, lg",
+    # a window top-k
+    "SELECT k, v, row_number() OVER (PARTITION BY k ORDER BY v DESC) AS rn FROM a "
+    "QUALIFY rn <= 2 ORDER BY k, rn",
 ])
 def test_capture_makes_no_host_sync_and_replay_equals_eager(sql):
     from datafusion_tpu_torch.physical.fused import _Graph

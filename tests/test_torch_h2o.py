@@ -3,8 +3,8 @@ SessionContext(device="cpu") against the JAX package's SessionContext and a
 pandas oracle, at N = 20 000 rows, K = 25 (integers exact, floats to
 rtol 1e-9 / atol 1e-9, as tests/test_h2o.py). Each query runs on the port's
 own path choice and again with the dense path switched off, so that every
-query also goes through sort-based grouping. q8 needs window functions and
-must raise."""
+query also goes through sort-based grouping. q8 (the two largest v3 per
+id6, a window top-k) is held against both too."""
 import jax
 import numpy as np
 import pandas as pd
@@ -54,6 +54,9 @@ def oracle(qid: int, x: pd.DataFrame) -> pd.DataFrame:
     if qid == 10:
         return x.groupby(["id1", "id2", "id3", "id4", "id5", "id6"],
                          as_index=False).agg(v3=("v3", "sum"), cnt=("v1", "size"))
+    if qid == 8:
+        return (x.sort_values("v3", ascending=False).groupby("id6").head(2)
+                [["id6", "v3"]].rename(columns={"v3": "largest2_v3"}))
     raise ValueError(qid)
 
 
@@ -138,5 +141,19 @@ def test_routes_at_this_scale(h2o, monkeypatch):
 
 
 def test_window_query_raises(h2o):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        h2o[1].sql(GROUPBY_QUERIES[7]).collect()
+    """q8 plans as a window top-k and equals the reference and pandas (as a
+    multiset: ties in v3 may pick either row, with equal values)."""
+    from datafusion_tpu_torch.physical.window import WindowTopKExec
+
+    jax_answer, pctx, x = h2o
+    df = pctx.sql(GROUPBY_QUERIES[7])
+    stack = [df.physical_plan()]
+    kinds = set()
+    while stack:
+        p = stack.pop()
+        kinds.add(type(p))
+        stack.extend(p.children())
+    assert WindowTopKExec in kinds
+    ours = df.to_pandas()
+    assert_same(ours, oracle(8, x))
+    assert_same(ours, jax_answer(8))

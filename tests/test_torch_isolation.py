@@ -23,8 +23,13 @@ VERBATIM = [
     "data/table.py", "models/tpch/datagen.py", "models/tpch/queries.py",
     "models/tpch/queries_ref.py", "models/tpch/compare.py",
     "models/h2o/datagen.py", "models/h2o/queries.py", "native/__init__.py",
-    "native/dictenc.cpp",
+    "native/dictenc.cpp", "models/tpcds/__init__.py", "models/tpcds/schema.py",
+    "models/tpcds/datagen.py", "models/tpcds/sqlite_oracle.py",
 ]
+# copied byte for byte, without a header
+VERBATIM_DATA = sorted(str(p.relative_to(ROOT / "datafusion_tpu"))
+                       for p in (ROOT / "datafusion_tpu" / "models" / "tpcds"
+                                 / "queries").glob("*.sql"))
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|datafusion_tpu)\b(?!_torch)", re.M)
 
@@ -62,6 +67,15 @@ def test_verbatim_copy_equals_original(path):
     assert header == (f"{comment} Verbatim copy of datafusion_tpu/{path}; host-only, "
                       "kept in step with the original.")
     assert body == (ROOT / "datafusion_tpu" / path).read_text()
+
+
+def test_verbatim_data_files_equal_their_originals():
+    assert len(VERBATIM_DATA) == 99
+    copies = sorted(str(p.relative_to(PORT)) for p in
+                    (PORT / "models" / "tpcds" / "queries").glob("*.sql"))
+    assert copies == VERBATIM_DATA
+    for path in VERBATIM_DATA:
+        assert (PORT / path).read_bytes() == (ROOT / "datafusion_tpu" / path).read_bytes(), path
 
 
 def test_session_defaults_to_cuda_and_raises_without_it(monkeypatch):

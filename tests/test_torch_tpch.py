@@ -110,6 +110,12 @@ def test_main_path_goes_through_dense_groupby_sums(sessions, monkeypatch):
     # the sort path emits groups ascending by key: the ORDER BY is elided
     ("select l_orderkey, min(l_shipdate) m, count(*) c from lineitem "
      "group by l_orderkey order by l_orderkey limit 20", True),
+    # a window function (physical/window.py)
+    ("select l_orderkey, row_number() over (partition by l_returnflag "
+     "order by l_orderkey) rn from lineitem", False),
+    ("select sqrt(l_quantity) from lineitem", False),
+    ("select l_orderkey from lineitem where l_quantity < 2 "
+     "union all select l_orderkey from lineitem where l_quantity > 49", False),
 ])
 def test_more_queries_match_jax(sessions, sql, ordered):
     jctx, pctx, _ = sessions
@@ -119,13 +125,11 @@ def test_more_queries_match_jax(sessions, sql, ordered):
 
 
 @pytest.mark.parametrize("sql", [
-    # a window function (ROADMAP item 8)
-    "select l_orderkey, row_number() over (partition by l_returnflag "
-    "order by l_orderkey) rn from lineitem",
-    "select sqrt(l_quantity) from lineitem",  # scalar functions not ported
-    # a UNION (ROADMAP item 12)
-    "select l_orderkey from lineitem where l_quantity < 2 "
-    "union all select l_orderkey from lineitem where l_quantity > 49",
+    "select date_trunc('month', l_shipdate) from lineitem",  # ROADMAP item 9
+    "select unnest(make_array(l_orderkey, l_partkey)) from lineitem",  # item 9
+    # a recursive CTE (ROADMAP item 12)
+    "with recursive r(n) as (select 1 union all select n + 1 from r where n < 3) "
+    "select n from r",
 ])
 def test_unported_queries_raise(sessions, sql):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

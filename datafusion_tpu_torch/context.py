@@ -1,12 +1,13 @@
 """SessionContext + DataFrame: the user-facing API.
 
 Port of the SQL path of datafusion_tpu/context.py: register in-memory tables,
-run SELECT and EXPLAIN statements, collect results. Plans run on the
-session's device, which is the CUDA card unless the caller passes another
-(`SessionContext(device="cpu")`): operator by operator the first time a
-DataFrame is collected, then as a steady state (physical/fused.py). DDL,
-DML, file tables, UDF registration and streaming execution are not ported
-yet (ROADMAP queue 1, item 12 'Remaining surface')."""
+run SELECT and EXPLAIN statements, CREATE TABLE ... AS SELECT and CREATE
+TABLE t(...), collect results. Plans run on the session's device, which is
+the CUDA card unless the caller passes another (`SessionContext(device=
+"cpu")`): operator by operator the first time a DataFrame is collected, then
+as a steady state (physical/fused.py). Other DDL, DML, file tables, UDF
+registration and streaming execution are not ported yet (ROADMAP queue 1,
+item 12 'Remaining surface')."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -14,6 +15,7 @@ from typing import Dict, Optional
 from .catalog.catalog import Catalog, MemTable, TableProvider
 from .common import types as T
 from .common.errors import PlanError
+from .expr import nodes as E
 from .data.device import resolve_device, to_host
 from .data.table import Table
 from .expr.udf import FunctionRegistry, with_registry
@@ -55,8 +57,9 @@ class SessionContext:
 
     @with_registry
     def sql(self, query: str) -> "DataFrame":
-        """Run one or more SQL statements; the last query statement is
-        returned lazily as a DataFrame."""
+        """Run one or more SQL statements; DDL runs at once, the last query
+        statement is returned lazily as a DataFrame (an empty one when there
+        is none)."""
         from .sql import ast as A
         from .sql.parser import parse_sql
         from .sql.planner import SqlPlanner
@@ -71,11 +74,10 @@ class SessionContext:
         for stmt in stmts:
             out = self._run_statement(stmt, A, SqlPlanner)
         if out is None:
-            raise NotImplementedError(
-                f"a statement list with no query is not ported yet ({_SURFACE_ITEM})")
+            out = DataFrame(self, L.EmptyRelation(False))
         return out
 
-    def _run_statement(self, stmt, A, SqlPlanner) -> "DataFrame":
+    def _run_statement(self, stmt, A, SqlPlanner) -> Optional["DataFrame"]:
         if isinstance(stmt, A.SelectStmt):
             return DataFrame(self, SqlPlanner(self.catalog).plan_statement(stmt))
         if isinstance(stmt, A.Explain):
@@ -87,8 +89,43 @@ class SessionContext:
             lines = Table.from_pydict({"plan": text.splitlines()},
                                       {"plan": T.STRING})
             return DataFrame(self, L.TableScan("explain", MemTable(lines)))
+        if isinstance(stmt, A.CreateTableAs):
+            self._create_table(stmt, SqlPlanner)
+            return None
         raise NotImplementedError(
             f"{type(stmt).__name__} statements are not ported yet ({_SURFACE_ITEM})")
+
+    def _create_table(self, stmt, SqlPlanner) -> None:
+        """CREATE [OR REPLACE] TABLE [IF NOT EXISTS] t AS SELECT ... (a
+        declared column list renames and casts the query's columns) and
+        CREATE TABLE t(a INT, ...), an empty table; the result is held as an
+        in-memory table."""
+        try:
+            self.catalog.get(stmt.name)
+            exists = True
+        except Exception:  # noqa: BLE001 -- absent name
+            exists = False
+        if exists:
+            if stmt.if_not_exists:
+                return
+            if not stmt.or_replace:
+                raise PlanError(f"Table '{stmt.name}' already exists")
+        cols = getattr(stmt, "columns", None)
+        if stmt.query is None:
+            self.register_table(stmt.name, Table.from_pydict(
+                {n: [] for n, _ in cols}, {n: dt for n, dt in cols}))
+            return
+        plan = SqlPlanner(self.catalog).plan_statement(stmt.query)
+        if cols:
+            fields = plan.schema.fields
+            if len(fields) != len(cols):
+                raise PlanError(
+                    f"CREATE TABLE {stmt.name}: {len(cols)} declared "
+                    f"columns but query produces {len(fields)}")
+            plan = L.Projection(plan, [
+                E.Alias(E.Cast(E.Column(f.name, f.qualifier), dt, False), n)
+                for f, (n, dt) in zip(fields, cols)])
+        self.register_table(stmt.name, DataFrame(self, plan).collect())
 
     def exec_context(self) -> ExecContext:
         merged = self.options.to_dict()

@@ -215,8 +215,8 @@ def _list_device_arrays(rows: np.ndarray, elem: T.DataType, cap: int):
     elem_valid (one nesting level)."""
     if elem.is_list:
         raise NotImplementedError(
-            "nested list columns are not ported yet (ROADMAP queue 1, item 9 "
-            "'Function and nested-type breadth')")
+            "nested list columns are not ported yet (ROADMAP queue 1, item 9b "
+            "'Nested types')")
     n = len(rows)
     width = max([1] + [len(r) for r in rows if r is not None])
     data = np.zeros((cap, width), dtype=elem.np_dtype())

@@ -165,8 +165,8 @@ def with_registry(method):
 # ---------------------------------------------------------------------------
 
 _NOT_PORTED = ("user-defined function evaluation is not ported to "
-               "datafusion_tpu_torch yet (ROADMAP queue 1, item 9 'Function "
-               "and nested-type breadth')")
+               "datafusion_tpu_torch yet (ROADMAP queue 1, item 9c 'Spark "
+               "functions, UDFs, HyperLogLog')")
 
 
 def udf_input_array(col):

@@ -20,8 +20,10 @@ Where the reference differs from this port, and why:
   half an ulp of the running total per group (about 3e-8 at h2o's 1e7-row
   scale, far outside 1e-9 for one-row groups). Integer sums and counts keep
   the prefix differences, which are exact.
-* array_agg, string_agg, approx_distinct and aggregate UDFs are not ported
-  yet: ROADMAP queue 1, item 9.
+* approx_distinct is the exact distinct count over sorted runs, as the
+  reference's default (its HyperLogLog sketch, ops/hll.py, is opt-in there);
+  array_agg, string_agg and aggregate UDFs are not ported yet: ROADMAP
+  queue 1, items 9b and 9c.
 """
 from __future__ import annotations
 
@@ -35,9 +37,10 @@ from ..common.errors import PlanError
 from ..data.device import DeviceColumn, is_integer, torch_dtype
 from . import kernels as K
 
-_BREADTH_ITEM = "ROADMAP queue 1, item 9 'Function and nested-type breadth'"
-# aggregates whose accumulators the port does not have yet
-NOT_PORTED = frozenset({"array_agg", "string_agg", "approx_distinct"})
+# aggregates whose accumulators the port does not have yet, with their items
+NOT_PORTED = {"array_agg": "ROADMAP queue 1, item 9b 'Nested types'",
+              "string_agg": "ROADMAP queue 1, item 9b 'Nested types'"}
+_UDF_ITEM = "ROADMAP queue 1, item 9c 'Spark functions, UDFs, HyperLogLog'"
 
 
 @dataclasses.dataclass
@@ -74,10 +77,10 @@ _INPUT_ORDER = frozenset({"first_value", "last_value", "any_value",
 
 
 def not_ported_error(fname: str) -> NotImplementedError:
-    what = ("aggregate UDF" if fname not in NOT_PORTED else "aggregate")
+    what = "aggregate UDF" if fname not in NOT_PORTED else "aggregate"
     return NotImplementedError(
         f"{what} {fname!r} is not ported to datafusion_tpu_torch yet "
-        f"({_BREADTH_ITEM})")
+        f"({NOT_PORTED.get(fname, _UDF_ITEM)})")
 
 
 def order_arg_of(spec: "AggSpec"):
@@ -419,6 +422,11 @@ def _reduce_one(spec, sa, sf, ssel, seg, is_start, distinct_start, G,
     if f == "count":
         cnt = SCNT(dmark()) if spec.distinct else SCNT(mask)
         return DeviceColumn(cnt.to(torch.int64), None, T.INT64)
+
+    if f == "approx_distinct":
+        # the exact distinct count, by sorted runs (rows are value-sorted
+        # within each group: it is order-sensitive)
+        return DeviceColumn(SCNT(dmark()).to(torch.int64), None, T.INT64)
 
     if arg is None:
         raise PlanError(f"aggregate {f} requires an argument")

@@ -9,14 +9,22 @@ relation's device. A comparison of a dictionary column with a string literal
 compares codes with the literal's position in the sorted dictionary.
 
 Ported: columns, literals, aliases, sort keys, numeric/decimal/temporal
-casts, casts of strings to DATE32, TIMESTAMP and TIME (each dictionary value
-parsed once; a comparison of a string with a temporal value casts the string
-side), negation, NOT, IS NULL, binary operators (logic, comparison,
-arithmetic, decimal and date arithmetic), BETWEEN, IN lists, LIKE (a host
-regex over the dictionary, gathered per row), CASE, interval bounds
-propagation and predicates, and the scalar functions physical/functions.py
-has. The other scalar functions and the other casts to or from strings are
-not ported yet and raise NotImplementedError.
+casts, casts of strings to numbers, DATE32, TIMESTAMP and TIME (each
+dictionary value parsed once; a comparison of a string with a temporal value
+casts the string side), UTF8 <-> BINARY (a re-encoded dictionary, invalid
+values NULL), casts of numbers, booleans and temporal values to strings and
+to_char (string_cast_column: a dictionary of the live values rendered at
+discovery, a sorted-table lookup per row), negation, NOT, IS NULL, binary
+operators (logic, comparison, arithmetic, decimal and date arithmetic),
+BETWEEN, IN lists, LIKE (a host regex over the dictionary, gathered per
+row), CASE, interval bounds propagation and predicates, and the scalar
+functions of physical/functions.py.
+
+While the steady state's walker runs (physical/fused.py), it installs its
+overflow-flag list and a dict of values fixed for the life of that steady
+state (set_flag_sink): a string cast whose value table misses a live value
+appends a flag, which sends the query back to discovery, and the clock
+functions read the time once per steady state (steady_value).
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from ..expr import nodes as E
 from ..expr.typing import arith_result
 from ..utils import dates as DU
 
-_FUNCTIONS_ITEM = "ROADMAP queue 1, item 9 'Function and nested-type breadth'"
+_UDF_ITEM = "ROADMAP queue 1, item 9c 'Spark functions, UDFs, HyperLogLog'"
 
 # Host work over string dictionaries runs once per dictionary, not once per
 # execution: merges, LIKE and IN-list tables, substring remaps, literal
@@ -98,6 +106,30 @@ def dictionary_work(dicts: Tuple[Dictionary, ...], op: str, args: tuple,
     return work
 
 
+# the steady state's overflow flags and fixed values, while its walker runs
+_FLAG_SINK: Optional[list] = None
+_STEADY_VALUES: Optional[dict] = None
+
+
+def set_flag_sink(sink: Optional[list], values: Optional[dict] = None):
+    """Install the running steady state's flag list and values (None, None:
+    not in a steady state); returns the previous pair."""
+    global _FLAG_SINK, _STEADY_VALUES
+    prev = (_FLAG_SINK, _STEADY_VALUES)
+    _FLAG_SINK, _STEADY_VALUES = sink, values
+    return prev
+
+
+def steady_value(key, make):
+    """make() outside a steady state; inside one, the value its first run
+    made (so a CUDA graph captures it, and the CPU's eager runs reuse it)."""
+    if _STEADY_VALUES is None:
+        return make()
+    if key not in _STEADY_VALUES:
+        _STEADY_VALUES[key] = make()
+    return _STEADY_VALUES[key]
+
+
 def hold_tables(sink: Optional[list]) -> Optional[list]:
     """Append every lookup table handed out from now on to `sink` (None
     stops); returns the previous sink."""
@@ -108,7 +140,7 @@ def hold_tables(sink: Optional[list]) -> Optional[list]:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to datafusion_tpu_torch yet ({_FUNCTIONS_ITEM})")
+        f"{what} is not ported to datafusion_tpu_torch yet ({_UDF_ITEM})")
 
 
 def merge_dictionaries(a: Dictionary, b: Dictionary) -> DictionaryWork:
@@ -328,40 +360,88 @@ def _rescale_decimal(data: torch.Tensor, from_scale: int, to_scale: int) -> torc
     return data // (10 ** (from_scale - to_scale))  # floors, as jnp does
 
 
-# the string casts ported: a lookup table parsed over the dictionary
-_PARSED = (T.TypeKind.DATE32, T.TypeKind.TIMESTAMP, T.TypeKind.TIME)
-
-
 def _parse_strings(col: DeviceColumn, dtype: T.DataType) -> DeviceColumn:
-    """A string column cast to DATE32, TIMESTAMP or TIME: each dictionary
-    value parsed once (cached per dictionary), one gather per row."""
+    """A string column cast to a number, DATE32, TIMESTAMP or TIME: each
+    dictionary value parsed once (cached per dictionary), one gather per
+    row. A value that does not parse raises numpy's ValueError, as in the
+    reference."""
     d = col.dictionary or EMPTY_DICTIONARY
+    k = dtype.kind
 
     def compute():
         vals = dictionary_text(d)
         if not len(vals):
-            return (np.zeros(1, np.int32 if dtype.kind is T.TypeKind.DATE32
-                             else np.int64),)
-        if dtype.kind is T.TypeKind.DATE32:
+            return (np.zeros(1, dtype.np_dtype()),)
+        if k is T.TypeKind.DATE32:
             return (DU.dates_from_strings(vals),)
-        if dtype.kind is T.TypeKind.TIMESTAMP:
+        if k is T.TypeKind.TIMESTAMP:
             return (vals.astype("datetime64[us]").astype(np.int64),)
-        return (DU.times_from_strings(vals),)
+        if k is T.TypeKind.TIME:
+            return (DU.times_from_strings(vals),)
+        fl = vals.astype(np.float64)
+        if dtype.is_decimal:
+            return (np.rint(fl * 10 ** dtype.scale).astype(np.int64),)
+        return (fl.astype(dtype.np_dtype()),)
 
-    work = dictionary_work((d,), "parse", (dtype.kind.value,), compute)
+    key = (k.value, dtype.scale if dtype.is_decimal else None)
+    work = dictionary_work((d,), "parse", key, compute)
     return DeviceColumn(work.lookup(0, col.data), col.validity, dtype)
+
+
+def _recode_strings(col: DeviceColumn, dtype: T.DataType) -> DeviceColumn:
+    """UTF8 <-> BINARY: the dictionary re-encoded on the host (bytes sort
+    differently from text, so codes remap through a new sorted dictionary);
+    a value that does not convert becomes NULL."""
+    d = col.dictionary or EMPTY_DICTIONARY
+    to_bytes = dtype.is_binary
+
+    def compute():
+        new_vals, ok = [], []
+        for v in d.values:
+            try:
+                new_vals.append(v.encode("utf-8") if to_bytes else v.decode("utf-8"))
+                ok.append(True)
+            except (UnicodeDecodeError, UnicodeEncodeError, AttributeError):
+                new_vals.append(b"" if to_bytes else "")
+                ok.append(False)
+        uniq = sorted(set(new_vals))
+        lut = {v: i for i, v in enumerate(uniq)}
+        return (Dictionary(np.array(uniq, dtype=object)),
+                np.array([lut[v] for v in new_vals] or [0], dtype=np.int32),
+                np.array(ok or [True]))
+
+    work = dictionary_work((d,), "recode", (to_bytes,), compute)
+    new_dict, _, ok = work.value
+    validity = col.validity
+    if not ok.all():
+        validity = _combine_validity(validity, work.lookup(2, col.data))
+    return DeviceColumn(work.lookup(1, col.data), validity, dtype, new_dict)
 
 
 def cast_column(col: DeviceColumn, dtype: T.DataType, capacity: int) -> DeviceColumn:
     if col.dtype == dtype:
         return col
     v = col.validity
-    if dtype.is_string and col.dtype.is_string and col.dtype.kind == dtype.kind:
-        return col
-    if col.dtype.is_string and not col.dtype.is_binary and dtype.kind in _PARSED:
-        return _parse_strings(col, dtype)
-    if dtype.is_string or col.dtype.is_string:
-        raise _not_ported(f"cast {col.dtype} -> {dtype}")
+    if dtype.is_string:
+        if col.dtype.is_string:
+            if col.dtype.kind == dtype.kind:
+                return col
+            return _recode_strings(col, dtype)
+        if col.dtype.kind is T.TypeKind.NULL:
+            # an untyped NULL (arrow_cast(NULL, 'Utf8')): an all-NULL column
+            dev = col.data.device
+            return DeviceColumn(torch.zeros(capacity, dtype=torch.int32, device=dev),
+                                torch.zeros(capacity, dtype=torch.bool, device=dev),
+                                dtype, EMPTY_DICTIONARY)
+        # numbers and dates to strings need the live values (string_cast_column)
+        raise PlanError(f"cast {col.dtype} -> string not supported on device")
+    if col.dtype.is_string:
+        if col.dtype.is_binary:
+            raise PlanError(f"cast binary -> {dtype} not supported")
+        if dtype.kind in (T.TypeKind.DATE32, T.TypeKind.TIMESTAMP, T.TypeKind.TIME) \
+                or dtype.is_numeric:
+            return _parse_strings(col, dtype)
+        raise PlanError(f"cast string -> {dtype} not supported")
     if dtype.is_decimal:
         if col.dtype.is_decimal:
             return DeviceColumn(_rescale_decimal(col.data, col.dtype.scale, dtype.scale), v, dtype,
@@ -397,6 +477,103 @@ def cast_column(col: DeviceColumn, dtype: T.DataType, capacity: int) -> DeviceCo
         if info.min <= int(col.bounds[0]) and int(col.bounds[1]) <= info.max:
             b = col.bounds  # narrowing can't wrap: bounds prove fit
     return DeviceColumn(col.data.to(out_t), v, dtype, bounds=b)
+
+
+# ---------------------------------------------------------------------------
+# numeric / boolean / temporal -> string casts (discovery-time dictionaries)
+# ---------------------------------------------------------------------------
+
+
+def render_strings(vals: np.ndarray, dtype: T.DataType,
+                   fmt: Optional[str] = None) -> np.ndarray:
+    """Host rendering of concrete values, as CAST(x AS VARCHAR) and
+    to_char(x, fmt) give them: Arrow's display conventions (bool
+    'true'/'false', dates ISO, decimals at full scale); to_char formats with
+    strftime."""
+    k = dtype.kind
+    if fmt is not None:
+        if k is T.TypeKind.DATE32:
+            objs = vals.astype("datetime64[D]").tolist()
+        elif k is T.TypeKind.TIMESTAMP:
+            objs = vals.astype("datetime64[us]").tolist()
+        else:
+            raise PlanError(f"to_char: unsupported input type {dtype}")
+        return np.array([o.strftime(fmt) if o is not None else "" for o in objs],
+                        dtype=object)
+    if k is T.TypeKind.BOOL:
+        return np.array(["true" if v else "false" for v in vals], dtype=object)
+    if dtype.is_decimal:
+        s = dtype.scale
+        out = []
+        for v in vals:
+            v = int(v)
+            if s == 0:
+                out.append(str(v))
+            else:
+                sign = "-" if v < 0 else ""
+                a = abs(v)
+                out.append(f"{sign}{a // 10 ** s}.{a % 10 ** s:0{s}d}")
+        return np.array(out, dtype=object)
+    if dtype.is_integer:
+        return np.array([str(int(v)) for v in vals], dtype=object)
+    if dtype.is_float:
+        return np.array([str(float(v)) for v in vals], dtype=object)
+    if k is T.TypeKind.DATE32:
+        return np.datetime_as_string(vals.astype("datetime64[D]")).astype(object)
+    if k is T.TypeKind.TIMESTAMP:
+        return np.datetime_as_string(vals.astype("datetime64[us]"),
+                                     unit="auto").astype(object)
+    if k is T.TypeKind.TIME:
+        return np.array([DU.us_to_time_str(v) for v in vals], dtype=object)
+    raise PlanError(f"cast {dtype} -> string not supported")
+
+
+def string_cast_column(node: E.Expr, col: DeviceColumn, rel: DeviceRelation,
+                       fmt: Optional[str] = None) -> DeviceColumn:
+    """CAST(non-string AS VARCHAR) / to_char(x, fmt). Outside a steady state
+    (discovery, per-operator execution) the live values are concrete: their
+    distinct values are read to the host once, rendered, and kept on the
+    expression node with the sorted value table. Every run, the steady
+    state's too, maps each row to its code by a sorted-table lookup on the
+    device; inside a steady state a live value missing from the table
+    raises an overflow flag, and the query goes back to discovery, which
+    renders the new values."""
+    live = rel.sel if col.validity is None else rel.sel & col.validity
+    data = col.data.to(torch.int8) if col.data.dtype is torch.bool else col.data
+    cache_key = (fmt, col.dtype)
+    state = getattr(node, "_str_cast_state", None)
+    if state is not None and state[0] != cache_key:
+        state = None
+    if _FLAG_SINK is None:
+        vals = data[live].cpu().numpy()  # discovery's one host read
+        uniq = np.unique(vals) if vals.size else np.zeros(1, vals.dtype)
+        dict_vals, codes = np.unique(render_strings(uniq, col.dtype, fmt),
+                                     return_inverse=True)
+        # the search keys: np.unique puts NaN last; as +inf they stay sorted
+        # for a binary search (a NaN query is sent to the last slot)
+        keys = np.where(np.isnan(uniq), np.inf, uniq) if uniq.dtype.kind == "f" else uniq
+        state = (cache_key, DictionaryWork(
+            (), (keys, codes.astype(np.int32).reshape(-1),
+                 Dictionary(np.asarray(dict_vals, dtype=object)), uniq)))
+        object.__setattr__(node, "_str_cast_state", state)  # a frozen dataclass
+    if state is None:
+        raise PlanError("string cast requires a concrete discovery pass before "
+                        "the steady state")
+    work = state[1]
+    n, dictionary = len(work.value[0]), work.value[2]
+    keys = work.table(0, data.device)
+    d = data.to(keys.dtype).contiguous()
+    idx = torch.clamp(torch.searchsorted(keys, d), 0, n - 1)
+    if keys.dtype.is_floating_point:
+        idx = torch.where(torch.isnan(d), n - 1, idx)
+    got = work.table(3, data.device)[idx]
+    hit = got == d
+    if keys.dtype.is_floating_point:
+        hit = hit | (torch.isnan(got) & torch.isnan(d))
+    if _FLAG_SINK is not None:
+        _FLAG_SINK.append((~hit & live).any())
+    out_codes = torch.where(hit, work.table(1, data.device)[idx], 0).to(torch.int32)
+    return DeviceColumn(out_codes, col.validity, T.STRING, dictionary)
 
 
 def _literal_column(e: E.Literal, capacity: int, device) -> DeviceColumn:
@@ -506,9 +683,13 @@ def eval_binary(e: E.BinaryOp, l: DeviceColumn, r: DeviceColumn, schema: Schema)
             else:
                 r = cast_column(r, l.dtype, r.data.shape[0])
         if l.dtype.is_string or r.dtype.is_string:
+            # binary vs utf8: the utf8 side is cast to bytes
             if l.dtype.is_binary != r.dtype.is_binary \
                     and l.dtype.is_string and r.dtype.is_string:
-                raise _not_ported(f"comparison of {l.dtype} with {r.dtype}")
+                if l.dtype.is_binary:
+                    r = cast_column(r, T.BINARY, r.data.shape[0])
+                else:
+                    l = cast_column(l, T.BINARY, l.data.shape[0])
             l2, r2 = unify_string_columns(l, r)
             data = _CMP[op](l2.data, r2.data)
         else:
@@ -637,7 +818,10 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
     if isinstance(e, (E.Alias, E.SortSpec)):
         return eval_expr(e.expr, rel)
     if isinstance(e, E.Cast):
-        return cast_column(eval_expr(e.expr, rel), e.dtype, cap)
+        src = eval_expr(e.expr, rel)
+        if e.dtype.is_string and not src.dtype.is_string:
+            return string_cast_column(e, src, rel)
+        return cast_column(src, e.dtype, cap)
     if isinstance(e, E.Negative):
         c = eval_expr(e.expr, rel)
         return DeviceColumn(-c.data, c.validity, c.dtype)
@@ -676,9 +860,17 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
             raise _not_ported(f"scalar UDF {e.fname!r}")
         from ..expr.typing import infer
 
+        if e.fname == "to_char" and len(e.args) == 2:
+            src = eval_expr(e.args[0], rel)
+            if src.dtype.is_string:
+                return src
+            fmt = e.args[1]
+            if not isinstance(fmt, E.Literal):
+                raise PlanError("to_char format must be a literal")
+            return string_cast_column(e, src, rel, fmt=str(fmt.value))
         out_t, _ = infer(e, schema)
         return F.eval_scalar_function(e.fname, [eval_expr(a, rel) for a in e.args],
-                                      e.args, out_t, cap)
+                                      e.args, out_t, cap, rel.device)
     if isinstance(e, E.InList):
         c = eval_expr(e.expr, rel)
         if _is_text_dict(c) and e.values and all(

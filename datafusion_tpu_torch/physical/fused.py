@@ -15,7 +15,8 @@ Two-phase adaptive execution, one FusedQuery per DataFrame:
      host, and every decision appends a 0-d bool overflow flag (live rows
      past a compaction's capacity, groups past a sorted aggregate's, matches
      past a join's expansion, a duplicate key under a direct join,
-     survivors past a window top-k's capacity). The
+     survivors past a window top-k's capacity, a live value missing from a
+     string cast's value table). The
      flags reduce to one tensor on the device, read once per execute() (a
      plan without a guard reads nothing). On a CUDA device the steady
      state is run once on a side stream (which also copies every dictionary
@@ -189,10 +190,17 @@ class FusedQuery:
 
     def _steady_fn(self):
         leaf_index = {id(leaf): i for i, leaf in enumerate(self.leaves)}
+        values = {}  # fixed for the life of this steady state (the clock)
 
         def fn(inputs: Tuple[DeviceRelation, ...]):
             tctx = _TraceCtx()
-            rel = _trace(self.plan, inputs, leaf_index, tctx)
+            # expression-level discovery state (string casts) reports a
+            # stale table through the same flags as the operators
+            prev = EC.set_flag_sink(tctx.flags, values)
+            try:
+                rel = _trace(self.plan, inputs, leaf_index, tctx)
+            finally:
+                EC.set_flag_sink(*prev)
             # no overflow guard: no flag, and nothing to read. The reference
             # reads a result-dependent False there, to wait for the result on
             # a backend whose block_until_ready returns at once; here the host

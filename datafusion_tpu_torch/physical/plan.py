@@ -316,7 +316,7 @@ class AggregateExec(PhysicalPlan):
 
     def _check_ported(self) -> None:
         """Aggregates whose accumulators are not ported raise before any
-        device work (ROADMAP queue 1, item 9)."""
+        device work (ROADMAP queue 1, items 9b and 9c)."""
         from ..expr.udf import active_registry
 
         for a in self._agg_fns():
@@ -568,7 +568,13 @@ class AggregateExec(PhysicalPlan):
                                   else self._kernel_factor(fac[1])))
 
         if slots:
-            sums, counts = DA.dense_groupby_sums(seg, rel.sel, pairs, ngroups)
+            # the kernel takes at most MAX_PAIRS pairs a launch (ClickBench
+            # q29 sums 90 columns): one launch per chunk, the same counts
+            chunks = [pairs[i:i + DA.MAX_PAIRS]
+                      for i in range(0, len(pairs), DA.MAX_PAIRS)] or [[]]
+            parts = [DA.dense_groupby_sums(seg, rel.sel, c, ngroups) for c in chunks]
+            counts = parts[0][1]
+            sums = parts[0][0] if len(parts) == 1 else torch.cat([p[0] for p in parts], 1)
         else:  # no aggregate the kernel takes: counts for out_sel only
             counts = K.segment_count(seg, rel.sel, ngroups)
         # a global (no GROUP BY) aggregate emits its one row even over empty
@@ -975,8 +981,8 @@ def concat_relations(rels: List[DeviceRelation], schema: Schema) -> DeviceRelati
         if f.dtype.is_list:
             raise NotImplementedError(
                 "list columns through an outer join or a UNION are not ported to "
-                "datafusion_tpu_torch yet (ROADMAP queue 1, item 9 "
-                "'Function and nested-type breadth')")
+                "datafusion_tpu_torch yet (ROADMAP queue 1, item 9b "
+                "'Nested types')")
         if f.dtype.is_string:
             from .expr_compiler import unify_many_string_columns
 

@@ -18,7 +18,7 @@ from . import plan as P
 
 # logical node kind -> the ROADMAP item (queue 1) that ports its operator
 _NOT_PORTED = {
-    L.Unnest: "item 9 'Function and nested-type breadth'",
+    L.Unnest: "item 9b 'Nested types'",
     L.RecursiveQuery: "item 12 'Remaining surface'",
 }
 

@@ -164,19 +164,40 @@ def test_dates_accept_numpy_and_tensors():
     assert np.array_equal(PDU.days_from_civil(*PDU.civil_from_days(days)), days)
 
 
-@pytest.mark.parametrize("what", ["string_function", "date_trunc", "string_to_number",
-                                  "function", "string_cast"])
-def test_unported_expressions_raise(what):
-    rel = TD.to_device(PTable.from_pydict({"s": ["a", "b"], "x": [1, 2]}), device="cpu")
-    e = {
+def _formerly_unported(E, T, what):
+    return {
         "string_function": E.ScalarFunction("md5", (E.Column("s"),)),
-        "date_trunc": E.ScalarFunction("date_trunc", (E.lit("month"), E.Column("x"))),
+        "date_trunc": E.ScalarFunction("date_trunc", (E.lit("month"), E.Column("d"))),
         "string_to_number": E.Cast(E.Column("s"), T.INT64),
         "function": E.ScalarFunction("atan2", (E.Column("x"), E.Column("x"))),
         "string_cast": E.Cast(E.Column("x"), T.STRING),
     }[what]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PX.eval_expr(e, rel)
+
+
+@pytest.mark.parametrize("what", ["string_function", "date_trunc", "string_to_number",
+                                  "function", "string_cast"])
+def test_unported_expressions_raise(what):
+    """These expressions raised NotImplementedError until the function
+    library and the string casts were ported; each now evaluates as the JAX
+    package's does, and a string that is not a number raises its
+    ValueError on both."""
+    data = {"s": ["a", "b"], "x": [1, 2], "d": [-40, 10_000]}
+    rel = TD.to_device(PTable.from_pydict(data, {"d": T.DATE32}), device="cpu")
+    jrel = JD.to_device(JTable.from_pydict(data, {"d": JT.DATE32}))
+    try:
+        want = JX.eval_expr(_formerly_unported(JE, JT, what), jrel)
+    except ValueError:
+        with pytest.raises(ValueError):
+            PX.eval_expr(_formerly_unported(E, T, what), rel)
+        return
+    got = PX.eval_expr(_formerly_unported(E, T, what), rel)
+    assert repr(got.dtype) == repr(want.dtype)
+    if got.dictionary is not None:
+        assert [got.dictionary.values[c] for c in got.data.tolist()] == \
+            [want.dictionary.values[c] for c in np.asarray(want.data).tolist()]
+    else:
+        np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
+                                   rtol=1e-12, atol=1e-12)
 
 
 # .5 ties of both signs, at one and two decimal digits

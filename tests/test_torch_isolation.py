@@ -25,6 +25,9 @@ VERBATIM = [
     "models/h2o/datagen.py", "models/h2o/queries.py", "native/__init__.py",
     "native/dictenc.cpp", "models/tpcds/__init__.py", "models/tpcds/schema.py",
     "models/tpcds/datagen.py", "models/tpcds/sqlite_oracle.py",
+    "sql/unparser.py", "models/clickbench/__init__.py",
+    "models/clickbench/datagen.py", "models/clickbench/queries.py",
+    "testing/__init__.py", "testing/slt.py",
 ]
 # copied byte for byte, without a header
 VERBATIM_DATA = sorted(str(p.relative_to(ROOT / "datafusion_tpu"))

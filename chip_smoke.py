@@ -49,7 +49,20 @@ order, it:
      turns, sql()+collect(), the capture's host ms, the host syncs of each
      (torch.cuda.set_sync_debug_mode), and one profile of each (device busy,
      idle share, op families), and the memory reserved after each query;
-  8. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
+  8. nested types (physical/nested.py, UnnestExec, array_agg, string_agg)
+     on the SF 1 tables already on the card: every case of
+     testing/nested_cases.py on the card, three collect()s of one
+     DataFrame, each equal to the CPU (floats to rtol 1e-12, the rest
+     exact); each rejected query raises the same class on both; each
+     family captured under torch.cuda.set_sync_debug_mode("error") and
+     replayed; then N1-N8 (array_agg grouped, its functions, unnest, 1.5M
+     lineitem lists, string_agg, a word count through string_to_array,
+     lambdas, set functions) through discovery and the steady state as in
+     7, each answer equal to a numpy/pandas oracle, printing each one's
+     discovered list width and host syncs, N1/N3/N4/N6/N8 timed and
+     profiled; a table whose largest group grows between two collect()s
+     must send N1's query back to discovery;
+  9. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
      K = 100, seed 42) and runs groupby q1-q10 through the same API -- the
      second main path -- each checked against a pandas oracle on the same
      table (floats to rtol 1e-9 / atol 1e-9, the rest exact; q8, the two
@@ -59,7 +72,7 @@ order, it:
      the CPU on NaN, -0.0 and int64 extremes; holds the kernel against its
      plain version at the h2o shapes and times it there as in 5; then runs
      each query's steady state as in 7;
-  9. TPC-DS (models/tpcds): at generator scale 0.05 runs all 99 queries on
+ 10. TPC-DS (models/tpcds): at generator scale 0.05 runs all 99 queries on
      the card and on the CPU and fails unless their answers are equal
      (sqlite_oracle.frames_match, rows as multisets); then at --tpcds-sf
      (every table on the card) runs each query through the same API --
@@ -72,7 +85,7 @@ order, it:
      shape the queries give it and times it there as in 5. Fails if a query
      raises anything but NotImplementedError naming a ROADMAP item, and
      prints how many of the 99 run and which do not;
- 10. the scalar functions and string casts (physical/functions.py,
+ 11. the scalar functions and string casts (physical/functions.py,
      expr_compiler.py): every case of testing/edge_cases.py over its edge
      table (NULLs, NaN, +-0.0, int64 extremes, empty and non-ASCII strings,
      dates before 1970) on the card, three collect()s of one DataFrame, each
@@ -81,15 +94,15 @@ order, it:
      function family captured once under
      torch.cuda.set_sync_debug_mode("error") and replayed; a string cast
      whose steady state meets a new value goes back to discovery;
- 11. ClickBench (models/clickbench): at 100,000 rows all 43 queries on the
+ 12. ClickBench (models/clickbench): at 100,000 rows all 43 queries on the
      card equal the CPU, and the 38 sqlite runs equal sqlite; then
      --clickbench-rows rows (every column on the card) through the same API
-     as in 9 (discovery with the kernel's launches, a captured steady state
+     as in 10 (discovery with the kernel's launches, a captured steady state
      with at most 2 host syncs, each later answer equal to discovery's, the
      kernel held and timed at every new shape); q18, q27, q28 and q42 (and
      q42 over every counter) against a pandas/numpy oracle that does not use
      the port; CLICKBENCH_TIMED timed and profiled;
- 12. prints a {"kernels": [...]} line, the card's name and power limit, and,
+ 13. prints a {"kernels": [...]} line, the card's name and power limit, and,
      last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA device it exits with code 2 at once.
@@ -97,8 +110,10 @@ Without a CUDA device it exits with code 2 at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import inspect
+import itertools
 import json
 import os
 import re
@@ -137,6 +152,11 @@ from datafusion_tpu_torch.physical import fused as FQ
 from datafusion_tpu_torch.physical import plan as P
 from datafusion_tpu_torch.testing.edge_cases import (CASES, ERRORS, FAMILIES,
                                                      edge_table, edge_types)
+from datafusion_tpu_torch.testing.nested_cases import CASES as NESTED_CASES
+from datafusion_tpu_torch.testing.nested_cases import ERRORS as NESTED_ERRORS
+from datafusion_tpu_torch.testing.nested_cases import FAMILIES as NESTED_FAMILIES
+from datafusion_tpu_torch.testing.nested_cases import TPCH as NESTED_TPCH
+from datafusion_tpu_torch.testing.nested_cases import tables as nested_tables
 
 # H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
@@ -1657,6 +1677,289 @@ def run_clickbench(rows: int, repeat: int, shapes: dict, seen: set, iters: int,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 12. nested types: the card against the CPU, then N1-N8 at TPC-H scale
+# ---------------------------------------------------------------------------
+
+# the queries timed and profiled (eager and fused collect() in turns)
+NESTED_TIMED = ("N1", "N3", "N4", "N6", "N8")
+NESTED_REPEAT = 3
+
+
+def same_values(a, b) -> bool:
+    """Equal Python values: lists element by element, floats to FLOAT_TOL."""
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+                and len(a) == len(b) and all(same_values(x, y) for x, y in zip(a, b)))
+    if isinstance(a, float) or isinstance(b, float):
+        if a is None or b is None:
+            return a is b
+        if np.isnan(a) or np.isnan(b):
+            return bool(np.isnan(a) and np.isnan(b))
+        return a == b or abs(a - b) <= FLOAT_TOL + FLOAT_TOL * abs(b)
+    return a == b
+
+
+def same_pydict(got: dict, want: dict) -> bool:
+    return list(got) == list(want) and all(same_values(got[k], want[k]) for k in want)
+
+
+def list_widths(df) -> list:
+    """The list width each array_agg / string_agg AggregateExec discovered."""
+    out, stack = [], [df.physical_plan()]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, P.AggregateExec) and p._has_array_agg():
+            out.append(p._last_width)
+        stack.extend(p.children())
+    return out
+
+
+def run_nested_card_vs_cpu() -> None:
+    """Every case of testing/nested_cases.py on the card, three collect()s
+    of one DataFrame (discovery, the capture, a replay), each equal to the
+    CPU (floats to rtol 1e-12, the rest exact) and the steady state a
+    captured graph; each rejected query raises the same class on both; each
+    family captured once under torch.cuda.set_sync_debug_mode("error"),
+    then replayed twice, equal to the CPU."""
+    t0 = time.perf_counter()
+    card, cpu = SessionContext(), SessionContext(device="cpu")
+    for ctx in (card, cpu):
+        for name, cols in nested_tables().items():
+            ctx.register_table(name, cols)
+    for name, sql in sorted(NESTED_CASES.items()):
+        want = cpu.sql(sql).to_pydict()
+        df = card.sql(sql)
+        for i in range(3):
+            check(same_pydict(df.to_pydict(), want),
+                  f"nested {name}: collect() {i + 1} on the card differs from the CPU")
+        check(isinstance(df._fused_query()._fused, FQ._Graph),
+              f"nested {name}: no captured graph")
+    for name, sql in sorted(NESTED_ERRORS.items()):
+        raised = []
+        for ctx in (card, cpu):
+            try:
+                ctx.sql(sql).collect()
+                raised.append(None)
+            except Exception as e:  # noqa: BLE001 -- compared between devices
+                raised.append(type(e).__name__)
+        check(raised[0] is not None and raised[0] == raised[1],
+              f"nested {name}: the card raises {raised[0]}, the CPU {raised[1]}")
+    for family, sql in sorted(NESTED_FAMILIES.items()):
+        want = cpu.sql(sql).to_pydict()
+        df = card.sql(sql)
+        df.collect()
+        fq = df._fused_query()
+        inputs = tuple(leaf.execute(card.exec_context()) for leaf in fq.leaves)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a sync in warm-up or capture raises
+        try:
+            graph = FQ._Graph(fq._steady_fn(), inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for _ in range(2):
+            rel, overflow = graph.run()
+            check(not overflow, f"nested family {family}: the replay overflowed")
+            check(same_pydict(to_host(rel).to_pydict(), want),
+                  f"nested family {family}: a replay differs from the CPU")
+    emit({"phase": "nested_card_vs_cpu", "cases": len(NESTED_CASES),
+          "rejected": len(NESTED_ERRORS), "families_captured": sorted(NESTED_FAMILIES),
+          "card_equals_cpu": True, "s": time.perf_counter() - t0})
+
+
+def _lists(c) -> tuple:
+    """(lengths, flattened elements) of a list column of a host Table."""
+    rows = c.data
+    check(c.validity is None or bool(np.all(c.validity)), "a NULL list")
+    lengths = np.fromiter(map(len, rows), dtype=np.int64, count=len(rows))
+    try:
+        flat = np.fromiter(itertools.chain.from_iterable(rows), dtype=np.int64,
+                           count=int(lengths.sum()))
+    except TypeError:  # None
+        check(False, "a NULL element")
+    return lengths, flat
+
+
+def _by_key(got: Table, key: str):
+    """The answer's rows in key order: (keys, {column: HostColumn taken})."""
+    keys, _ = _col(got, key)
+    order = np.argsort(keys, kind="stable")
+    return keys[order], {f.name: c.take(order) for f, c in zip(got.schema.fields, got.columns)}
+
+
+def _grouped(keys: np.ndarray, *values: np.ndarray):
+    """The oracle's groups: (distinct keys, sizes, each values array sorted
+    by (key, that array))."""
+    gk, sizes = np.unique(keys, return_counts=True)
+    return gk, sizes, [v[np.lexsort((v, keys))] for v in values]
+
+
+def nested_oracle(name: str, tables: dict):
+    """What N<name> must return, from the generator's numpy arrays (strings
+    as dictionary codes or decoded words): a function of the answer Table
+    that checks it."""
+    orders, lineitem = tables["orders"], tables["lineitem"]
+    ck = _col(orders, "o_custkey")[0].astype(np.int64)
+    ok = _col(orders, "o_orderkey")[0].astype(np.int64)
+
+    def same_lists(label, got_c, sizes, flat, words=None, got_words=None):
+        lengths, gflat = _lists(got_c)
+        if words is not None:
+            gflat = np.asarray(got_words, dtype=object)[gflat]
+            flat = np.asarray(words, dtype=object)[flat]
+        check(np.array_equal(lengths, sizes) and np.array_equal(gflat, flat),
+              f"{name}: {label} differs from the oracle")
+
+    if name in ("N1", "N2", "N7", "N8"):
+        gk, sizes, (okeys,) = _grouped(ck, ok)
+
+        def same(got: Table):
+            keys, cols = _by_key(got, "o_custkey")
+            check(np.array_equal(keys, gk), f"{name}: the groups differ")
+            if name == "N1":
+                same_lists("os", cols["os"], sizes, okeys)
+            elif name == "N2":
+                tp, _ = _col(orders, "o_totalprice")
+                pr, pd_ = _col(orders, "o_orderpriority")
+                urgent = np.asarray(pd_.values, dtype=object)[pr] == "1-URGENT"
+                order = np.argsort(ck, kind="stable")
+                starts = np.r_[0, np.cumsum(sizes)[:-1]]
+                check(np.array_equal(np.asarray(cols["n"].data), sizes)
+                      and np.array_equal(np.asarray(cols["mx"].data),
+                                         np.maximum.reduceat(tp[order], starts))
+                      and np.array_equal(np.asarray(cols["urgent"].data),
+                                         np.logical_or.reduceat(urgent[order], starts)),
+                      f"{name}: n / mx / urgent differ from the oracle")
+            elif name == "N7":
+                even = ok % 2 == 0
+                gke, se = np.unique(ck[even], return_counts=True)
+                full = np.zeros(len(gk), np.int64)
+                full[np.searchsorted(gk, gke)] = se
+                same_lists("ev", cols["ev"], full, ok[even][np.lexsort((ok[even], ck[even]))])
+                tp, _ = _col(orders, "o_totalprice")
+                scale = 10 ** (got.schema.fields[got.schema.index_of("dbl")].dtype.elem.scale
+                               - orders.schema.fields[orders.schema.index_of(
+                                   "o_totalprice")].dtype.scale)
+                same_lists("dbl", cols["dbl"], sizes,
+                           tp[np.lexsort((tp, ck))] * 2 * scale)
+            else:  # N8
+                pr, pd_ = _col(orders, "o_orderpriority")
+                pairs = np.unique(ck * 8 + pr)
+                pk, psz = np.unique(pairs // 8, return_counts=True)
+                check(np.array_equal(pk, gk), f"{name}: the groups differ")
+                same_lists("ps", cols["ps"], psz, pairs % 8, pd_.values,
+                           cols["ps"].dictionary.values)
+                both = np.intersect1d(np.unique(ck * 16 + ok % 10), np.unique(ck * 16 + ok % 7))
+                isz = np.zeros(len(gk), np.int64)
+                ik, ic = np.unique(both // 16, return_counts=True)
+                isz[np.searchsorted(gk, ik)] = ic
+                same_lists("i", cols["i"], isz, both % 16)
+        return same
+    if name == "N3":
+        want = np.sort(ck * (1 << 32) + ok)
+
+        def same(got: Table):
+            c = _col(got, "o_custkey")[0].astype(np.int64)
+            o = _col(got, "o_orderkey")[0].astype(np.int64)
+            check(np.array_equal(np.sort(c * (1 << 32) + o), want),
+                  f"{name}: the (o_custkey, o_orderkey) multiset differs")
+        return same
+    if name == "N4":
+        lk, _ = _col(lineitem, "l_orderkey")
+        pk, _ = _col(lineitem, "l_partkey")
+        qty, _ = _col(lineitem, "l_quantity")
+        gk, sizes, (parts, qtys) = _grouped(lk, pk, qty)
+
+        def same(got: Table):
+            keys, cols = _by_key(got, "l_orderkey")
+            check(np.array_equal(keys, gk), f"{name}: the groups differ")
+            same_lists("ps", cols["ps"], sizes, parts)
+            same_lists("qs", cols["qs"], sizes, qtys)
+        return same
+    if name == "N5":
+        nk, _ = _col(tables["customer"], "c_nationkey")
+        seg, sd = _col(tables["customer"], "c_mktsegment")
+        words = np.asarray(sd.values, dtype=object)[seg]
+        want = {int(k): ",".join(sorted(words[nk == k])) for k in np.unique(nk)}
+
+        def same(got: Table):
+            d = got.to_pydict()
+            check(dict(zip(d["c_nationkey"], d["segs"])) == want
+                  and len(d["segs"]) == len(want), f"{name}: differs from the oracle")
+        return same
+    # N6: the word count
+    pn, pdict = _col(tables["part"], "p_name")
+    names = np.asarray(pdict.values, dtype=object)[pn]
+    want = collections.Counter(w for n in names for w in n.split(" "))
+
+    def same(got: Table):
+        d = got.to_pydict()
+        check(dict(zip(d["w"], d["c"])) == want and len(d["w"]) == len(want),
+              f"{name}: the word counts differ from the oracle")
+    return same
+
+
+def check_width_overflow() -> dict:
+    """N1's query over a small orders table whose largest group grows in
+    place between two collect()s: the steady state's width flag must send
+    the query back to discovery, which widens the list."""
+    ctx = SessionContext()
+    ctx.register_table("ov", {"o_custkey": [1, 1, 2, 3, 3], "o_orderkey": [5, 6, 7, 8, 9]})
+    df = ctx.sql(NESTED_TPCH["N1"].replace("from orders", "from ov") + " order by o_custkey")
+    want = {"o_custkey": [1, 2, 3], "os": [[5, 6], [7], [8, 9]]}
+    check([df.to_pydict() for _ in range(3)] == [want] * 3
+          and isinstance(df._fused_query()._fused, FQ._Graph),
+          "nested: the width overflow table's steady state")
+    before = list_widths(df)
+    ctx.catalog.get("ov")._device[str(ctx.device)]["o_custkey"].data[2] = 1
+    got = df.to_pydict()
+    check(got == {"o_custkey": [1, 3], "os": [[5, 6, 7], [8, 9]]}
+          and df._fused_query()._fused is None,
+          f"nested: a longer group did not send N1 back to discovery: {got}")
+    after = list_widths(df)
+    check(after == [4] and before == [2], f"nested: widths {before} -> {after}")
+    check([df.to_pydict() for _ in range(2)] == [got] * 2,
+          "nested: the steady state after rediscovery")
+    return {"width_before": before, "width_after": after, "rediscovered": True}
+
+
+def run_nested(ctx, tables: dict, repeat: int) -> None:
+    """The nested phase: the case table on the card against the CPU, then
+    N1-N8 over the TPC-H tables already on the card, each through
+    fused_query (discovery, capture and a replay equal to its oracle; a
+    captured graph; at most 2 host syncs per warm collect()), with its
+    discovered list width; NESTED_TIMED also timed and profiled; then the
+    width overflow."""
+    t0 = time.perf_counter()
+    run_nested_card_vs_cpu()
+    for name, sql in sorted(NESTED_TPCH.items()):
+        same = nested_oracle(name, tables)
+        df = ctx.sql(sql)
+        DA.reset_launches()
+        t1 = time.perf_counter()
+        got = df.collect()
+        discovery_ms = (time.perf_counter() - t1) * 1e3
+        same(got)
+        out = fused_query(ctx, f"nested_{name}", sql, same, repeat,
+                          timed=name in NESTED_TIMED,
+                          discovered=(df, discovery_ms, DA.launches))
+        out.update({"rows": got.num_rows, "list_widths": list_widths(df),
+                    "operators": sorted({type(p).__name__ for p in _plan_nodes(df)})})
+        emit(out)
+    emit({"phase": "nested", "width_overflow": check_width_overflow(),
+          "memory_reserved": torch.cuda.memory_reserved(),
+          "s": time.perf_counter() - t0})
+
+
+def _plan_nodes(df) -> list:
+    out, stack = [], [df.physical_plan()]
+    while stack:
+        p = stack.pop()
+        out.append(p)
+        stack.extend(p.children())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -1751,6 +2054,7 @@ def main() -> int:
             emit({"kernel_timing": KERNEL["name"], "shape": label, **t})
 
     run_fused_tpch(ctx, args.sf, refs, args.repeat)
+    run_nested(ctx, tables, min(args.repeat, NESTED_REPEAT))
 
     check_segment_extremes(dev)
     t0 = time.perf_counter()

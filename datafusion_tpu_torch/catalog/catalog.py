@@ -141,6 +141,9 @@ class SchemaProvider:
     def register(self, name: str, provider: TableProvider):
         self.tables[name.lower()] = provider
 
+    def deregister(self, name: str):
+        self.tables.pop(name.lower(), None)
+
     def table(self, name: str) -> Optional[TableProvider]:
         return self.tables.get(name.lower())
 
@@ -207,6 +210,13 @@ class Catalog:
     def register(self, name: str, provider: TableProvider):
         c, s, t = self._split(name)
         self.register_catalog(c).schema(s, create=True).register(t, provider)
+
+    def deregister(self, name: str):
+        c, s, t = self._split(name)
+        cat = self.catalog(c)
+        sch = cat.schema(s) if cat else None
+        if sch:
+            sch.deregister(t)
 
     def get(self, name: str) -> TableProvider:
         c, s, t = self._split(name)

@@ -1,11 +1,11 @@
 """SessionContext + DataFrame: the user-facing API.
 
 Port of the SQL path of datafusion_tpu/context.py: register in-memory tables,
-run SELECT and EXPLAIN statements, CREATE TABLE ... AS SELECT and CREATE
-TABLE t(...), collect results. Plans run on the session's device, which is
-the CUDA card unless the caller passes another (`SessionContext(device=
-"cpu")`): operator by operator the first time a DataFrame is collected, then
-as a steady state (physical/fused.py). Other DDL, DML, file tables, UDF
+run SELECT and EXPLAIN statements, CREATE TABLE ... AS SELECT, CREATE
+TABLE t(...) and DROP TABLE, collect results. Plans run on the session's
+device, which is the CUDA card unless the caller passes another
+(`SessionContext(device="cpu")`): operator by operator the first time a
+DataFrame is collected, then as a steady state (physical/fused.py). Other DDL, DML, file tables, UDF
 registration and streaming execution are not ported yet (ROADMAP queue 1,
 item 12 'Remaining surface')."""
 from __future__ import annotations
@@ -21,7 +21,7 @@ from .data.table import Table
 from .expr.udf import FunctionRegistry, with_registry
 from .logical import plan as L
 from .physical.planner import create_physical_plan
-from .runtime.context import ExecContext
+from .runtime.context import ExecContext, planning_device
 
 _SURFACE_ITEM = "ROADMAP queue 1, item 12 'Remaining surface'"
 
@@ -71,8 +71,9 @@ class SessionContext:
             float_as_decimal=bool(
                 opts.get("sql_parser.parse_float_as_decimal", False)))
         out: Optional[DataFrame] = None
-        for stmt in stmts:
-            out = self._run_statement(stmt, A, SqlPlanner)
+        with planning_device(self.device):  # VALUES cells evaluate here
+            for stmt in stmts:
+                out = self._run_statement(stmt, A, SqlPlanner)
         if out is None:
             out = DataFrame(self, L.EmptyRelation(False))
         return out
@@ -91,6 +92,10 @@ class SessionContext:
             return DataFrame(self, L.TableScan("explain", MemTable(lines)))
         if isinstance(stmt, A.CreateTableAs):
             self._create_table(stmt, SqlPlanner)
+            return None
+        if isinstance(stmt, A.DropTable):  # an absent table is not an error
+            self.catalog.deregister(stmt.name)
+            self.catalog.views.pop(stmt.name.lower(), None)
             return None
         raise NotImplementedError(
             f"{type(stmt).__name__} statements are not ported yet ({_SURFACE_ITEM})")

@@ -12,8 +12,11 @@ as it is so that operator outputs compare slot by slot with the reference:
       (padded/NULL slots hold 0 in data);
     - string columns: data are int32 codes into a host-side SORTED
       Dictionary (order-preserving, so comparisons/sorts work on codes);
-    - list columns: data [capacity, width], int32 `lengths`, bool
+    - list columns: data [capacity, width] (a List(List) column: [capacity,
+      width, w2], inner lists at full width), int32 `lengths`, bool
       `elem_valid` [capacity, width];
+    - struct and map columns: int32 codes into a sorted dictionary of value
+      tuples (data/column.py), like strings;
     - `bounds` is optional static (lo, hi) interval metadata over the device
       representation (always containing 0, the padding value); the dense
       aggregation kernel path uses it to prove factors fit int32.
@@ -23,6 +26,7 @@ Tensors live on one torch device. Entry points default to the CUDA card
 """
 from __future__ import annotations
 
+import gc
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -101,6 +105,8 @@ class DeviceColumn:
         self.bounds = bounds
         self.lengths = lengths
         self.elem_valid = elem_valid
+        # host-side rendering tag, e.g. ("string_agg", delim): a [capacity,
+        # W] code matrix whose rows to_host joins with delim
         self.meta = meta
 
     def sort_bounds(self) -> Optional[Tuple[int, int]]:
@@ -123,11 +129,35 @@ class DeviceColumn:
     def capacity(self) -> int:
         return int(self.data.shape[0])
 
+    @property
+    def width(self) -> int:
+        """List width (1 for scalar columns)."""
+        return int(self.data.shape[1]) if self.data.ndim >= 2 else 1
+
     def valid(self) -> torch.Tensor:
         """The validity mask, all True when the column has none."""
         if self.validity is not None:
             return self.validity
         return torch.ones(self.data.shape[0], dtype=torch.bool, device=self.data.device)
+
+    def slot_valid(self) -> torch.Tensor:
+        """[capacity, width] mask of the live list slots."""
+        if self.elem_valid is not None:
+            return self.elem_valid
+        cap, w, dev = self.data.shape[0], self.width, self.data.device
+        if self.lengths is not None:
+            return torch.arange(w, dtype=torch.int32, device=dev)[None, :] \
+                < self.lengths[:, None]
+        return torch.ones((cap, w), dtype=torch.bool, device=dev)
+
+    def list_lengths(self) -> torch.Tensor:
+        """Per-row list length (int32)."""
+        if self.lengths is not None:
+            return self.lengths
+        if self.elem_valid is not None:
+            return self.elem_valid.sum(1, dtype=torch.int32)
+        return torch.full((self.data.shape[0],), self.width, dtype=torch.int32,
+                          device=self.data.device)
 
     # ---- metadata ----------------------------------------------------------
     def fits_i32(self) -> bool:
@@ -212,14 +242,22 @@ def table_bounds(table: Table) -> List[Optional[Tuple[int, int]]]:
 
 def _list_device_arrays(rows: np.ndarray, elem: T.DataType, cap: int):
     """Pad an object array of per-row lists to [cap, width] + lengths +
-    elem_valid (one nesting level)."""
-    if elem.is_list:
-        raise NotImplementedError(
-            "nested list columns are not ported yet (ROADMAP queue 1, item 9b "
-            "'Nested types')")
+    elem_valid. A List(List) column becomes [cap, width, w2]: the inner
+    lists are padded the same way and their lengths dropped (one level of
+    length metadata, as in the reference)."""
     n = len(rows)
     width = max([1] + [len(r) for r in rows if r is not None])
-    data = np.zeros((cap, width), dtype=elem.np_dtype())
+    if elem.is_list:
+        inner = np.empty(n * width, dtype=object)
+        for i in range(n):
+            r = rows[i]
+            for j in range(width):
+                inner[i * width + j] = r[j] if r is not None and j < len(r) else None
+        idata, _, _ = _list_device_arrays(inner, elem.elem, n * width)
+        data = np.zeros((cap, width, idata.shape[1]), dtype=idata.dtype)
+        data[:n] = idata.reshape(n, width, idata.shape[1])
+    else:
+        data = np.zeros((cap, width), dtype=elem.np_dtype())
     ev = np.zeros((cap, width), dtype=bool)
     lengths = np.zeros(cap, dtype=np.int32)
     for i in range(n):
@@ -229,7 +267,8 @@ def _list_device_arrays(rows: np.ndarray, elem: T.DataType, cap: int):
         lengths[i] = len(r)
         for j, x in enumerate(r):
             if x is not None:
-                data[i, j] = x
+                if not elem.is_list:
+                    data[i, j] = x
                 ev[i, j] = True
     return data, lengths, ev
 
@@ -318,11 +357,9 @@ def to_host(rel: DeviceRelation) -> Table:
     """Download a DeviceRelation as a host Table holding only the LIVE rows
     (in capacity order). When the live rows are a prefix of the capacity (a
     compacted or aggregated result) and the arrays are fresh downloads, the
-    columns are views of them; otherwise boolean indexing copies them."""
-    for c in rel.columns:
-        if c.meta is not None:
-            raise NotImplementedError(
-                f"column metadata {c.meta!r} is not ported yet")
+    columns are views of them; otherwise boolean indexing copies them. Every
+    tensor, list lengths and slot masks included, comes down in the one
+    batched copy."""
     parts = [rel.sel]
     for c in rel.columns:
         parts.extend((c.data, c.validity, c.lengths, c.elem_valid))
@@ -339,23 +376,65 @@ def to_host(rel: DeviceRelation) -> Table:
     for i, (f, c) in enumerate(zip(rel.schema.fields, rel.columns)):
         data, validity, lengths, elem_valid = host[1 + 4 * i:5 + 4 * i]
         v = None if validity is None else live(validity)
+        if c.meta is not None and c.meta[0] == "string_agg":
+            cols.append(_joined_strings(f.dtype, c, live(data), v,
+                                        None if lengths is None else live(lengths)))
+            continue
         if f.dtype.is_list:
             if lengths is None:
-                lengths = np.full(data.shape[0], data.shape[1], dtype=np.int32)
+                lengths = (elem_valid.sum(1).astype(np.int32) if elem_valid is not None
+                           else np.full(data.shape[0], data.shape[1], dtype=np.int32))
             ev = (elem_valid if elem_valid is not None else
                   np.arange(data.shape[1])[None, :] < lengths[:, None])
-            data2, lengths2, ev2 = live(data), live(lengths), live(ev)
-            rows = np.empty(len(data2), dtype=object)
-            for i in range(len(data2)):
-                rows[i] = [data2[i, j].item() if ev2[i, j] else None
-                           for j in range(int(lengths2[i]))]
+            rows = _list_rows(live(data), live(lengths), live(ev))
             if v is not None:
-                for i in np.nonzero(~v)[0]:
-                    rows[i] = None
+                for r in np.nonzero(~v)[0]:
+                    rows[r] = None
             cols.append(HostColumn(f.dtype, rows, v, c.dictionary))
             continue
         cols.append(HostColumn(f.dtype, live(data), v, c.dictionary))
     return Table(rel.schema, cols)
+
+
+def _list_rows(data: np.ndarray, lengths: np.ndarray, ev: np.ndarray) -> np.ndarray:
+    """One Python list per row: its first `lengths` slots, a slot that is
+    not valid as None. Nested lists (3-D data) render their inner lists at
+    full width. The cyclic garbage collector is paused meanwhile: with it
+    on, making 1.5M small lists costs about 8x as much."""
+    lengths = np.minimum(lengths.astype(np.int64), data.shape[1])
+    within = np.arange(data.shape[1])[None, :] < lengths[:, None]
+    ends = np.cumsum(lengths)
+    on = gc.isenabled()
+    gc.disable()
+    try:
+        flat = data[within].tolist()  # the slots within each list, row by row
+        rows = list(map(flat.__getitem__, map(slice, (ends - lengths).tolist(),
+                                              ends.tolist())))
+        for r in np.nonzero(~(ev | ~within).all(axis=1))[0].tolist():  # NULL elements
+            rows[r] = [x if e else None
+                       for x, e in zip(rows[r], ev[r, :len(rows[r])].tolist())]
+        return np.fromiter(rows, dtype=object, count=len(rows))
+    finally:
+        if on:
+            gc.enable()
+
+
+def _joined_strings(dtype: T.DataType, c: DeviceColumn, codes: np.ndarray,
+                    validity: Optional[np.ndarray],
+                    lengths: Optional[np.ndarray]) -> HostColumn:
+    """A ("string_agg", delim) column: each row's first `lengths` codes,
+    decoded through the dictionary and joined with delim (the device makes
+    no new strings)."""
+    from .column import column_from_values
+
+    delim = c.meta[1]
+    words = [str(w) for w in c.dictionary.values] if c.dictionary is not None else []
+    if lengths is None:
+        lengths = np.full(len(codes), codes.shape[1], dtype=np.int32)
+    ok = [True] * len(codes) if validity is None else validity.tolist()
+    rows = [delim.join(words[k] for k in row[:ln]) if good else None
+            for row, ln, good in zip(codes.tolist(), lengths.tolist(), ok)]
+    return column_from_values(rows, dtype)
 
 
 def empty_relation(schema: Schema, device=None) -> DeviceRelation:

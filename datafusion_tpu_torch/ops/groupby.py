@@ -22,8 +22,12 @@ Where the reference differs from this port, and why:
   the prefix differences, which are exact.
 * approx_distinct is the exact distinct count over sorted runs, as the
   reference's default (its HyperLogLog sketch, ops/hll.py, is opt-in there);
-  array_agg, string_agg and aggregate UDFs are not ported yet: ROADMAP
-  queue 1, items 9b and 9c.
+  aggregate UDFs are not ported yet: ROADMAP queue 1, item 9c;
+* array_agg / string_agg take each group's start and size from the sorted
+  path's group starts (SortedSegments), not from a segment_min of row ids
+  and a segment_count scatter, and string_agg compacts its non-NULL values
+  whenever they may not be contiguous in their group (DISTINCT, FILTER, or
+  ORDER BY another expression), where the reference reads its NULL rows.
 """
 from __future__ import annotations
 
@@ -37,9 +41,6 @@ from ..common.errors import PlanError
 from ..data.device import DeviceColumn, is_integer, torch_dtype
 from . import kernels as K
 
-# aggregates whose accumulators the port does not have yet, with their items
-NOT_PORTED = {"array_agg": "ROADMAP queue 1, item 9b 'Nested types'",
-              "string_agg": "ROADMAP queue 1, item 9b 'Nested types'"}
 _UDF_ITEM = "ROADMAP queue 1, item 9c 'Spark functions, UDFs, HyperLogLog'"
 
 
@@ -76,11 +77,10 @@ _INPUT_ORDER = frozenset({"first_value", "last_value", "any_value",
                           "nth_value"})
 
 
-def not_ported_error(fname: str) -> NotImplementedError:
-    what = "aggregate UDF" if fname not in NOT_PORTED else "aggregate"
+def udf_error(fname: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} {fname!r} is not ported to datafusion_tpu_torch yet "
-        f"({NOT_PORTED.get(fname, _UDF_ITEM)})")
+        f"aggregate UDF {fname!r} is not ported to datafusion_tpu_torch yet "
+        f"({_UDF_ITEM})")
 
 
 def order_arg_of(spec: "AggSpec"):
@@ -382,8 +382,6 @@ def _reduce_one(spec, sa, sf, ssel, seg, is_start, distinct_start, G,
                 group_count, out_sel, ss=None):
     f = spec.fname
     dev = ssel.device
-    if f in NOT_PORTED:
-        raise not_ported_error(f)
     mask = ssel
     filtered = spec.filter is not None
     if filtered:
@@ -416,6 +414,8 @@ def _reduce_one(spec, sa, sf, ssel, seg, is_start, distinct_start, G,
         return DeviceColumn(SCNT(mask).to(torch.int64), None, T.INT64)
 
     arg = sa[spec.arg] if spec.arg is not None else None
+    if f in ("array_agg", "string_agg"):
+        return _list_agg(spec, arg, mask, filtered, distinct_start, ss, out_sel)
     if arg is not None and arg.validity is not None:
         mask = mask & arg.validity
 
@@ -585,8 +585,61 @@ def _reduce_one(spec, sa, sf, ssel, seg, is_start, distinct_start, G,
     from ..expr.udf import active_registry
 
     if active_registry().aggregate(f) is not None:
-        raise not_ported_error(f)
+        raise udf_error(f)
     raise PlanError(f"aggregate function {f!r} not implemented")
+
+
+def max_group_size(state, G: int) -> torch.Tensor:
+    """The most live rows of one group (0-d) in a phase_sort state with at
+    most G groups: array_agg's and string_agg's list width."""
+    _, _, _, ssel, seg, is_start, _, _ = state
+    return SortedSegments(seg, ssel, is_start, G).count_all.max()
+
+
+def _list_agg(spec, arg, mask, filtered, distinct_start, ss, out_sel) -> DeviceColumn:
+    """array_agg / string_agg: each group's rows are contiguous in this
+    spec's bucket (sorted by (group keys, argument); dead rows sink to the
+    end), so its list is a [G, W] strided gather from the group's start.
+    array_agg keeps NULL elements (as the reference and Postgres); string_agg
+    skips them, and its rows become a ("string_agg", delim) column that
+    to_host joins. ss is None for the one global group."""
+    f = spec.fname
+    if spec.extra is None:
+        raise PlanError(f"{f} width not discovered")
+    n = mask.shape[0]
+    m = mask
+    if f == "array_agg":
+        if spec.distinct or filtered:
+            raise PlanError("array_agg with DISTINCT/FILTER is not supported")
+        W = int(spec.extra)
+    else:
+        delim, W = spec.extra
+        if arg.validity is not None:
+            m = m & arg.validity
+        if spec.distinct:
+            m = _distinct_marker(m, distinct_start) if filtered else (m & distinct_start)
+    counts = ss.count(m) if ss is not None else m.sum(dtype=torch.int64).view(1)
+    src = arg.data
+    if f == "string_agg" and (spec.distinct or filtered or (
+            spec.order_arg is not None and arg.validity is not None)):
+        # the values are not contiguous in their group: compact them first
+        # (a stable sort by !m keeps the (group, value) order)
+        src = src[K.compaction_order(m)]
+        starts = torch.cumsum(counts, 0) - counts
+    elif ss is not None:
+        starts = ss.starts.to(torch.int64)
+    else:  # the one global group: its live rows lead
+        starts = torch.zeros(1, dtype=torch.int64, device=mask.device)
+    j = torch.arange(int(W), dtype=torch.int64, device=mask.device)[None, :]
+    idx = torch.clamp(starts[:, None] + j, 0, n - 1)
+    slot = j < counts[:, None]
+    meta = None
+    if f == "array_agg":
+        ev = slot & arg.validity[idx] if arg.validity is not None else slot
+    else:
+        ev, meta = slot, ("string_agg", delim)
+    return DeviceColumn(src[idx], (counts > 0) & out_sel, spec.out_dtype,
+                        arg.dictionary, None, counts.to(torch.int32), ev, meta)
 
 
 def _two_arg(spec, sa, mask, seg, G, out_sel) -> DeviceColumn:
@@ -680,14 +733,18 @@ def global_aggregate(
         for i in idxs:
             c = _reduce_one(specs[i], sa, sf, ssel, seg, is_start,
                             distinct_start, 1, group_count, one)
-            data = torch.zeros(out_capacity, dtype=c.data.dtype, device=dev)
-            data[:1] = c.data[:1]
-            validity = None
-            if c.validity is not None:
-                validity = torch.zeros(out_capacity, dtype=torch.bool, device=dev)
-                validity[:1] = c.validity[:1]
-            outs[i] = DeviceColumn(data, validity, c.dtype, c.dictionary,
-                                   None, None, None, c.meta)
+
+            def pad(t):  # the one row, then zeros to out_capacity
+                if t is None:
+                    return None
+                out = torch.zeros((out_capacity,) + tuple(t.shape[1:]),
+                                  dtype=t.dtype, device=dev)
+                out[:1] = t[:1]
+                return out
+
+            outs[i] = DeviceColumn(pad(c.data), pad(c.validity), c.dtype,
+                                   c.dictionary, None, pad(c.lengths),
+                                   pad(c.elem_valid), c.meta)
     out_sel = torch.zeros(out_capacity, dtype=torch.bool, device=dev)
     out_sel[:1] = True
     return outs, out_sel

@@ -344,7 +344,7 @@ def gather_columns(
         if null_extend is not None:
             v = validity if validity is not None else torch.ones_like(null_extend)
             validity = v & ~null_extend
-            ne = null_extend[:, None] if data.ndim == 2 else null_extend
+            ne = null_extend.view((-1,) + (1,) * (data.ndim - 1))
             data = torch.where(ne, torch.zeros_like(data), data)
         out.append(DeviceColumn(data, validity, c.dtype, c.dictionary,
                                 _gathered_bounds(c, null_extend), lengths, ev,

@@ -132,6 +132,15 @@ def sort_rows(
     return gathered[:-1], gathered[-1]
 
 
+def repeat_rows(t: Optional[torch.Tensor], w: int) -> Optional[torch.Tensor]:
+    """Each row of t repeated w times in place (repeat_interleave along
+    dim 0 by a Python int, as a broadcast and one copy: no host sync)."""
+    if t is None:
+        return None
+    return t.unsqueeze(1).expand((t.shape[0], w) + tuple(t.shape[1:])) \
+        .reshape((t.shape[0] * w,) + tuple(t.shape[1:]))
+
+
 def compaction_order(sel: torch.Tensor) -> torch.Tensor:
     """Stable permutation moving selected rows to the front."""
     return torch.sort(_sortable(~sel), stable=True).indices

@@ -17,8 +17,9 @@ to_char (string_cast_column: a dictionary of the live values rendered at
 discovery, a sorted-table lookup per row), negation, NOT, IS NULL, binary
 operators (logic, comparison, arithmetic, decimal and date arithmetic),
 BETWEEN, IN lists, LIKE (a host regex over the dictionary, gathered per
-row), CASE, interval bounds propagation and predicates, and the scalar
-functions of physical/functions.py.
+row), CASE, interval bounds propagation and predicates, the scalar
+functions of physical/functions.py and the list, struct, map and lambda
+functions of physical/nested.py.
 
 While the steady state's walker runs (physical/fused.py), it installs its
 overflow-flag list and a dict of values fixed for the life of that steady
@@ -853,12 +854,17 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
             out = DeviceColumn(~out.data, out.validity, T.BOOL)
         return out
     if isinstance(e, E.ScalarFunction):
+        from ..expr.typing import infer
         from ..expr.udf import active_registry
         from . import functions as F
 
+        if any(isinstance(a, E.Lambda) for a in e.args):
+            from . import nested
+
+            return nested.eval_lambda_function(e.fname, e.args, rel,
+                                               infer(e, schema)[0])
         if active_registry().scalar(e.fname) is not None:
             raise _not_ported(f"scalar UDF {e.fname!r}")
-        from ..expr.typing import infer
 
         if e.fname == "to_char" and len(e.args) == 2:
             src = eval_expr(e.args[0], rel)

@@ -1,10 +1,9 @@
 """Scalar functions: typing and device evaluation.
 
 Port of datafusion_tpu/physical/functions.py: every scalar function of the
-reference but the nested family (physical/nested.py: list, struct and map
-functions), which raises NotImplementedError naming ROADMAP item 9b at
-typing (planning) time, and the Spark-semantics library (spark/, item 9c),
-which a session of this package cannot enable yet.
+reference but the Spark-semantics library (spark/, item 9c), which a
+session of this package cannot enable yet. The nested family (list, struct
+and map functions) is typed and evaluated by physical/nested.py.
 
 Dispatch is a name table (_IMPLS): each name maps to one small function per
 family (date parts, date_trunc, the clock, numeric unary, string transforms,
@@ -39,6 +38,7 @@ from ..data.column import Dictionary
 from ..data.device import DeviceColumn, torch_dtype
 from ..expr import nodes as E
 from ..utils import dates as DU
+from . import nested as N
 from .expr_compiler import (EMPTY_DICTIONARY, _combine_validity, _literal_column,
                             _to_float, cast_column, dictionary_text,
                             dictionary_work, literal_dictionary, steady_value,
@@ -73,42 +73,6 @@ _OTHER_NAMES = frozenset({
     "to_timestamp_seconds", "to_timestamp_millis", "to_timestamp_micros",
     "to_timestamp_nanos", "nvl2", "date_format",
 })
-# the names of the reference's physical/nested.py (its NESTED_FNS), which
-# this package does not evaluate yet
-_NESTED_ITEM = "ROADMAP queue 1, item 9b 'Nested types'"
-_NESTED_FNS = frozenset({
-    "make_array", "make_list", "array", "list",
-    "array_element", "list_element", "array_extract", "list_extract",
-    "array_length", "list_length", "cardinality", "array_dims", "array_ndims",
-    "empty", "array_empty", "list_empty",
-    "array_has", "array_contains", "list_has", "list_contains",
-    "array_has_all", "array_has_any",
-    "array_position", "list_position", "array_indexof", "list_indexof",
-    "array_positions", "list_positions",
-    "array_append", "list_append", "array_push_back",
-    "array_prepend", "list_prepend", "array_push_front",
-    "array_concat", "array_cat", "list_concat", "list_cat",
-    "array_slice", "list_slice",
-    "array_reverse", "list_reverse",
-    "array_distinct", "list_distinct",
-    "array_sort", "list_sort",
-    "array_union", "array_intersect", "array_except",
-    "array_remove", "list_remove", "array_remove_all", "list_remove_all",
-    "array_remove_n", "list_remove_n",
-    "array_repeat", "list_repeat",
-    "array_resize", "list_resize",
-    "array_pop_back", "array_pop_front",
-    "array_any_value", "array_max", "array_min", "array_sum", "array_mean",
-    "range", "generate_series",
-    "string_to_array", "string_to_list", "split_part_list",
-    "array_transform", "list_transform", "array_map",
-    "array_filter", "list_filter",
-    "array_any_match", "any_match", "list_any_match",
-    "array_all_match", "all_match", "list_all_match",
-    "get_field", "named_struct", "struct", "row",
-    "map", "make_map", "map_keys", "map_values", "map_extract",
-    "map_contains_key", "element_at", "map_entries",
-})
 # the dictionary product a concat / concat_ws may build (the reference's cap)
 _CONCAT_CAP = 1 << 18
 _US_DAY = 86_400_000_000
@@ -117,15 +81,9 @@ _I64_MIN, _I64_MAX = -(2 ** 63), 2 ** 63 - 1
 
 def builtin_function_names() -> set:
     """Every scalar-function name the evaluator accepts (for
-    information_schema.routines): the reference's, less the nested family."""
-    return set(_NUMERIC_UNARY) | set(_STRING_UNARY) | set(_OTHER_NAMES)
-
-
-def _check_nested(f: str) -> None:
-    if f in _NESTED_FNS:
-        raise NotImplementedError(
-            f"nested-type function {f!r} is not ported to datafusion_tpu_torch "
-            f"yet ({_NESTED_ITEM})")
+    information_schema.routines)."""
+    return (set(_NUMERIC_UNARY) | set(_STRING_UNARY) | set(_OTHER_NAMES)
+            | set(N.NESTED_FNS))
 
 
 def arrow_type_name(dt: T.DataType) -> str:
@@ -154,7 +112,8 @@ def scalar_function_type(e: E.ScalarFunction, schema: Schema) -> Tuple[T.DataTyp
     from ..expr.typing import infer
 
     f = e.fname
-    _check_nested(f)
+    if f in N.NESTED_FNS:
+        return N.nested_function_type(e, schema)
     argt = [infer(a, schema) for a in e.args]
     nullable = any(n for _, n in argt)
     if f in ("date_part", "extract", "year", "month", "day"):
@@ -1188,6 +1147,15 @@ def _concat_ws(f, args, ex, out_dtype, capacity, validity, device):
         if isinstance(node, E.Literal):
             parts.append(("lit", None if node.value is None else str(node.value)))
             continue
+        if isinstance(node, E.ScalarFunction) \
+                and node.fname in ("make_array", "array", "make_list"):
+            try:  # a literal array: its elements are pieces of their own
+                pieces = N._literal_py(node) or []
+            except PlanError:
+                pieces = None
+            if pieces is not None:
+                parts.extend(("lit", None if x is None else str(x)) for x in pieces)
+                continue
         if not (a.dtype.is_string and a.dictionary is not None):
             raise NotImplementedYet("concat_ws of non-string non-constant argument")
         nullable = a.validity is not None
@@ -1279,9 +1247,11 @@ def eval_scalar_function(fname: str, args: List[DeviceColumn],
                          capacity: int, device=None) -> DeviceColumn:
     """fname over the evaluated args on `device` (the relation's: a function
     without arguments has no column to take it from)."""
+    if fname in N.NESTED_FNS:
+        return N.eval_nested_function(fname, args, arg_exprs, out_dtype, capacity,
+                                      device)
     impl = _IMPLS.get(fname)
     if impl is None:
-        _check_nested(fname)
         raise PlanError(f"scalar function {fname!r} not implemented")
     validity = _combine_validity(*(a.validity for a in args))
     return impl(fname, args, arg_exprs, out_dtype, capacity, validity, device)

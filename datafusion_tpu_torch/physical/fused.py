@@ -13,7 +13,8 @@ Two-phase adaptive execution, one FusedQuery per DataFrame:
   2. steady state (the second execute() builds it, later ones replay it):
      a walker (_trace) applies the recorded decisions without reading the
      host, and every decision appends a 0-d bool overflow flag (live rows
-     past a compaction's capacity, groups past a sorted aggregate's, matches
+     past a compaction's capacity, groups past a sorted aggregate's, a
+     group longer than an array_agg / string_agg list width, matches
      past a join's expansion, a duplicate key under a direct join,
      survivors past a window top-k's capacity, a live value missing from a
      string cast's value table). The
@@ -55,6 +56,7 @@ import torch
 
 from ..common.errors import ExecutionError, PlanError, QueryCancelled
 from ..data.device import DeviceColumn, DeviceRelation
+from ..ops import groupby as G
 from ..runtime.context import ExecContext
 from . import expr_compiler as EC
 from . import plan as P
@@ -101,7 +103,7 @@ class FusedQuery:
     # flag that forces a real discovery.
     DISCOVERY_ATTRS = {
         "CompactExec": ("_decision",),
-        "AggregateExec": ("_last_cap",),
+        "AggregateExec": ("_last_cap", "_last_width"),
         "JoinExec": ("_direct_ok", "_last_co"),
         "WindowTopKExec": ("_last_cap",),
     }
@@ -336,7 +338,7 @@ def _trace_inner(p: P.PhysicalPlan, inputs, leaf_index, tctx) -> DeviceRelation:
     if isinstance(p, _LEAVES):
         return inputs[leaf_index[id(p)]]
     if isinstance(p, (P.FilterExec, P.ProjectionExec, P.LimitExec, P.SortExec,
-                      P.DistinctExec, WindowExec)):
+                      P.DistinctExec, P.UnnestExec, WindowExec)):
         return p._transform(_trace(p.input, inputs, leaf_index, tctx))
     if isinstance(p, P.UnionExec):
         return p._transform([_trace(c, inputs, leaf_index, tctx) for c in p.inputs])
@@ -373,10 +375,17 @@ def _trace_inner(p: P.PhysicalPlan, inputs, leaf_index, tctx) -> DeviceRelation:
 
 def apply_aggregate(p: P.AggregateExec, rel: DeviceRelation,
                     tctx: _TraceCtx) -> DeviceRelation:
-    """p's aggregation over an already-walked input with the capacity
-    discovery recorded; a sorted aggregate flags more groups than that."""
+    """p's aggregation over an already-walked input with the capacity and
+    list width discovery recorded; a sorted aggregate flags more groups than
+    that, and array_agg / string_agg a list longer than the width (the live
+    count for the global case, the largest group for the grouped one)."""
     p._check_ported()
+    width = getattr(p, "_last_width", None) if p._has_array_agg() else 0
+    if width is None:
+        raise ExecutionError("list width not discovered")
     if not p.group_exprs:
+        if width:
+            tctx.flags.append(rel.sel.sum() > width)
         if p._global_dense_ok(rel):
             return p._dense_transform(rel, [], 1, True)
         return p._global(rel)
@@ -388,6 +397,8 @@ def apply_aggregate(p: P.AggregateExec, rel: DeviceRelation,
         raise ExecutionError("aggregate capacity not discovered")
     states, specs = p._phase_sort(rel)
     tctx.flags.append(states[0][-1] > cap)
+    if width:
+        tctx.flags.append(G.max_group_size(states[0], cap) > width)
     return p._sorted_reduce(states, specs, cap)
 
 

@@ -43,8 +43,9 @@ def output_ordering(p: P.PhysicalPlan) -> Optional[Ordering]:
         return out or None
     if isinstance(p, (P.FilterExec, P.LimitExec, P.CompactExec, AliasExec)):
         return output_ordering(p.input)
-    if isinstance(p, WindowExec):
-        # window results are gathered back to the input's row order
+    if isinstance(p, (WindowExec, P.UnnestExec)):
+        # window results are gathered back to the input's row order; an
+        # unnest repeats each input row in place
         inner = output_ordering(p.input)
         if inner is None:
             return None

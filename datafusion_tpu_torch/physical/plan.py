@@ -12,14 +12,18 @@ Ported: ScanExec, FilterExec, ProjectionExec, LimitExec, SortExec (with
 fetch = TopK, and the presorted elision), CompactExec, DistinctExec,
 AggregateExec's global, dense and sort-based paths (ops/groupby.py),
 JoinExec (every join type, residual filters; ops/joinimpl.py), UnionExec,
-ValuesExec and EmptyExec. The window operators are in physical/window.py.
+ValuesExec, EmptyExec and UnnestExec. The window operators are in
+physical/window.py.
 Aggregates the kernel cannot take (min/max, filtered or DISTINCT aggregates,
-float sums, order statistics) go through ops/groupby._reduce_one.
+float sums, order statistics, array_agg and string_agg) go through
+ops/groupby._reduce_one.
 
 Data-dependent output sizes take one host read each when an operator
 executes (discovery): a compaction's live count, a sorted aggregate's group
-count, an expanding join's match total, and a direct-address join's
-duplicate flag. The decision and its application are separate methods
+count, an expanding join's match total, a direct-address join's
+duplicate flag, and the list width of array_agg / string_agg (the next
+power of two of the largest group's size: there is no lane count to pad
+to on a GPU). The decision and its application are separate methods
 (CompactExec._apply, AggregateExec._sorted_reduce, JoinExec.execute_rels
 with `flags`), so that a steady state (physical/fused.py) applies the
 discovered decisions without a host read and checks them with device-side
@@ -31,6 +35,7 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as TF
 
 from ..common import types as T
 from ..common.errors import ExecutionError, PlanError
@@ -46,6 +51,11 @@ from ..ops import joinimpl as J
 from ..ops import kernels as K
 from ..runtime.context import ExecContext
 from .expr_compiler import eval_expr, eval_predicate, unify_string_columns
+
+
+def _pow2(n: int) -> int:
+    """The smallest power of two >= n (>= 1)."""
+    return 1 << (max(int(n), 1) - 1).bit_length()
 
 
 def _scatter_any(capacity: int, idx: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
@@ -315,13 +325,20 @@ class AggregateExec(PhysicalPlan):
         return out
 
     def _check_ported(self) -> None:
-        """Aggregates whose accumulators are not ported raise before any
-        device work (ROADMAP queue 1, items 9b and 9c)."""
+        """Aggregate UDFs, whose accumulators are not ported, raise before
+        any device work (ROADMAP queue 1, item 9c)."""
         from ..expr.udf import active_registry
 
         for a in self._agg_fns():
-            if a.fname in G.NOT_PORTED or active_registry().aggregate(a.fname) is not None:
-                raise G.not_ported_error(a.fname)
+            if active_registry().aggregate(a.fname) is not None:
+                raise G.udf_error(a.fname)
+
+    def _has_array_agg(self) -> bool:
+        return any(a.fname in ("array_agg", "string_agg") for a in self._agg_fns())
+
+    def _widen(self, width: int) -> None:
+        """Record a discovered list width; it only grows across runs."""
+        self._last_width = max(_pow2(width), getattr(self, "_last_width", 0))
 
     def _prepare(self, rel: DeviceRelation):
         """Evaluate group keys, agg args, filters; build AggSpecs."""
@@ -366,6 +383,14 @@ class AggregateExec(PhysicalPlan):
                     if len(a.args) < 2 or not isinstance(a.args[1], E.Literal):
                         raise PlanError("nth_value requires a literal n")
                     extra = float(a.args[1].value)
+                if fname == "array_agg":  # the list width discovery found
+                    extra = getattr(self, "_last_width", None)
+                if fname == "string_agg":
+                    delim = ","
+                    if len(a.args) > 1 and isinstance(a.args[1], E.Literal) \
+                            and a.args[1].value is not None:
+                        delim = str(a.args[1].value)
+                    extra = (delim, getattr(self, "_last_width", None) or 0)
             filt_i = None
             if a.filter is not None:
                 filt_i = len(filter_cols)
@@ -385,8 +410,8 @@ class AggregateExec(PhysicalPlan):
                         raise PlanError(
                             "DISTINCT aggregate ORDER BY must match the "
                             "argument (ascending)")
-                elif fname in ("first_value", "last_value", "any_value",
-                               "nth_value"):
+                elif fname in ("array_agg", "string_agg", "first_value",
+                               "last_value", "any_value", "nth_value"):
                     order_arg = len(arg_cols)
                     arg_cols.append(eval_expr(aorder[0].expr, rel))
                     order_desc = not aorder[0].asc
@@ -620,6 +645,8 @@ class AggregateExec(PhysicalPlan):
         self._check_ported()
         rel = self.input.execute(ctx)
         if not self.group_exprs:
+            if self._has_array_agg():
+                self._widen(int(rel.sel.sum()))  # one host read: the list width
             if self._global_dense_ok(rel):
                 return self._timed(ctx, self._dense_transform, rel, [], 1, True)
             return self._timed(ctx, self._global, rel)
@@ -636,7 +663,20 @@ class AggregateExec(PhysicalPlan):
         num_groups = int(states[0][-1])
         cap = max(bucket_capacity(max(num_groups, 1)), getattr(self, "_last_cap", 0))
         self._last_cap = cap
+        if self._has_array_agg():
+            # a second host read: the largest group sizes the list width
+            self._widen(int(G.max_group_size(states[0], cap)))
+            specs = self._with_width(specs)
         return self._sorted_reduce(states, specs, cap)
+
+    def _with_width(self, specs):
+        """specs with the list width recorded since they were made."""
+        import dataclasses
+
+        w = self._last_width
+        return [dataclasses.replace(s, extra=w) if s.fname == "array_agg" else
+                dataclasses.replace(s, extra=(s.extra[0], w)) if s.fname == "string_agg"
+                else s for s in specs]
 
     def _sorted_reduce(self, states, specs, cap: int) -> DeviceRelation:
         """The sort path's reduction into `cap` output slots (groups past
@@ -900,7 +940,7 @@ class JoinExec(PhysicalPlan):
         rcols2 = []
         for c in rcols:
             v = c.validity if c.validity is not None else torch.ones_like(dead_b)
-            ne = dead_b[:, None] if c.data.ndim == 2 else dead_b
+            ne = dead_b.view((-1,) + (1,) * (c.data.ndim - 1))
             rcols2.append(DeviceColumn(
                 torch.where(ne, torch.zeros_like(c.data), c.data), v & ~dead_b,
                 c.dtype, c.dictionary, None, c.lengths, c.elem_valid, c.meta))
@@ -979,10 +1019,8 @@ def concat_relations(rels: List[DeviceRelation], schema: Schema) -> DeviceRelati
     for i, f in enumerate(schema.fields):
         cols = [r.columns[i] for r in rels]
         if f.dtype.is_list:
-            raise NotImplementedError(
-                "list columns through an outer join or a UNION are not ported to "
-                "datafusion_tpu_torch yet (ROADMAP queue 1, item 9b "
-                "'Nested types')")
+            out_cols.append(_concat_lists(cols, f.dtype))
+            continue
         if f.dtype.is_string:
             from .expr_compiler import unify_many_string_columns
 
@@ -996,6 +1034,39 @@ def concat_relations(rels: List[DeviceRelation], schema: Schema) -> DeviceRelati
             validity = torch.cat([c.valid() for c in cols])
         out_cols.append(DeviceColumn(data, validity, f.dtype, cols[0].dictionary))
     return DeviceRelation(schema, tuple(out_cols), torch.cat([r.sel for r in rels]))
+
+
+def _pad_width(t: torch.Tensor, dims) -> torch.Tensor:
+    """t zero-padded at the end of each axis past the first to `dims`."""
+    amount = []
+    for d in reversed(range(1, t.ndim)):
+        amount += [0, dims[d - 1] - t.shape[d]]
+    return TF.pad(t, amount) if any(amount) else t
+
+
+def _concat_lists(cols: List[DeviceColumn], dtype: T.DataType) -> DeviceColumn:
+    """List columns one after another: each padded to the widest, string
+    elements on one merged dictionary; validity, lengths and slot masks kept
+    apart (a NULL list, an empty list and a NULL element stay distinct)."""
+    if dtype.elem.is_string:
+        from .expr_compiler import unify_many_string_columns
+
+        flat = unify_many_string_columns(
+            [DeviceColumn(c.data.reshape(-1), None, T.STRING, c.dictionary)
+             for c in cols])
+        cols = [DeviceColumn(fc.data.reshape(c.data.shape), c.validity, c.dtype,
+                             fc.dictionary, None, c.lengths, c.elem_valid)
+                for c, fc in zip(cols, flat)]
+    shape = [max(c.data.shape[d] for c in cols) for d in range(1, cols[0].data.ndim)]
+    data = torch.cat([_pad_width(c.data, shape) for c in cols])
+    if not dtype.elem.is_list:
+        data = data.to(torch_dtype(dtype.elem))
+    ev = torch.cat([_pad_width(c.slot_valid(), shape[:1]) for c in cols])
+    validity = None
+    if any(c.validity is not None for c in cols):
+        validity = torch.cat([c.valid() for c in cols])
+    return DeviceColumn(data, validity, dtype, cols[0].dictionary, None,
+                        torch.cat([c.list_lengths() for c in cols]), ev)
 
 
 class UnionExec(PhysicalPlan):
@@ -1015,6 +1086,53 @@ class UnionExec(PhysicalPlan):
     def execute(self, ctx: ExecContext) -> DeviceRelation:
         rels = [p.execute(ctx) for p in self.inputs]
         return self._timed(ctx, self._transform, rels)
+
+
+class UnnestExec(PhysicalPlan):
+    """Explode list expressions to rows (reference: UnnestExec,
+    physical-plan/src/unnest.rs:65). The output capacity is capacity x the
+    widest list: input row i owns slots [i * w, (i + 1) * w), its live slots
+    masked by its list lengths, so the explode is one reshape and repeats.
+    Zip semantics: a row expands to its longest list, a NULL or empty list
+    contributes no row, a shorter list pads with NULL, and the passthrough
+    columns repeat."""
+
+    def __init__(self, input: PhysicalPlan, unnest_exprs: Sequence[E.Expr],
+                 schema: Schema):
+        self.input = input
+        self.unnest_exprs = tuple(unnest_exprs)
+        self.schema = schema
+
+    def children(self):
+        return (self.input,)
+
+    def _transform(self, rel: DeviceRelation) -> DeviceRelation:
+        cols = [eval_expr(e, rel) for e in self.unnest_exprs]
+        w = max(max(c.width for c in cols), 1)
+        cap = rel.capacity
+        dev = rel.device
+        maxlen = None
+        for c in cols:
+            eff = torch.where(c.valid(), c.list_lengths(), 0)
+            maxlen = eff if maxlen is None else torch.maximum(maxlen, eff)
+        slot = torch.arange(w, dtype=torch.int32, device=dev).repeat(cap)
+        sel = K.repeat_rows(rel.sel, w) & (slot < K.repeat_rows(maxlen, w))
+        out_cols = [_with_leaves(c, {k: K.repeat_rows(v, w)
+                                     for k, v in _column_leaves(c).items()})
+                    for c in rel.columns]
+        for c, f in zip(cols, self.schema.fields[len(rel.columns):]):
+            data = c.data if c.data.ndim > 1 else c.data[:, None]
+            data, sv = _pad_width(data, [w]), _pad_width(c.slot_valid(), [w])
+            ev = (sv & c.valid()[:, None]).reshape(cap * w)
+            out_cols.append(DeviceColumn(data.reshape(cap * w), ev, f.dtype,
+                                         c.dictionary))
+        return DeviceRelation(self.schema, tuple(out_cols), sel)
+
+    def execute(self, ctx: ExecContext) -> DeviceRelation:
+        return self._timed(ctx, self._transform, self.input.execute(ctx))
+
+    def _line(self):
+        return f"UnnestExec: {', '.join(e.name() for e in self.unnest_exprs)}"
 
 
 class _ConstantLeaf(PhysicalPlan):

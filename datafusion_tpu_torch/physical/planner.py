@@ -5,8 +5,8 @@ executes: scans, filters (a rank filter over a window as a per-partition
 top-k), projections, aggregates, DISTINCT, sorts, limits, aliases, joins
 (cross joins and scalar subqueries as joins on a constant key, one
 inequality between the sides as a range join), UNION ALL, VALUES, empty
-relations and windows. Every other node kind raises NotImplementedError
-naming the ROADMAP item that ports it, so an unsupported query fails at
+relations, windows and UNNEST. A recursive query raises
+NotImplementedError naming the ROADMAP item that ports it, so it fails at
 planning time instead of returning a wrong answer."""
 from __future__ import annotations
 
@@ -18,7 +18,6 @@ from . import plan as P
 
 # logical node kind -> the ROADMAP item (queue 1) that ports its operator
 _NOT_PORTED = {
-    L.Unnest: "item 9b 'Nested types'",
     L.RecursiveQuery: "item 12 'Remaining surface'",
 }
 
@@ -118,6 +117,8 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
 
         return WindowExec(_maybe_compact(child(plan.input)), plan.window_exprs,
                           plan.schema)
+    if isinstance(plan, L.Unnest):
+        return P.UnnestExec(child(plan.input), plan.unnest_exprs, plan.schema)
     for kind, item in _NOT_PORTED.items():
         if isinstance(plan, kind):
             raise NotImplementedError(
@@ -129,7 +130,7 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
 def _maybe_compact(p: P.PhysicalPlan) -> P.PhysicalPlan:
     """Wrap a grouped aggregate's, sort's or join's input in CompactExec when
     the subtree can produce a sparse selection mask (filters, joins other
-    than FULL, top-k, limits). Execution turns the node into identity when
+    than FULL, top-k, limits, unnest). Execution turns the node into identity when
     the input is in fact dense."""
     if _sparse_producer(p):
         return P.CompactExec(p)
@@ -137,7 +138,7 @@ def _maybe_compact(p: P.PhysicalPlan) -> P.PhysicalPlan:
 
 
 def _sparse_producer(p: P.PhysicalPlan) -> bool:
-    if isinstance(p, (P.FilterExec, P.LimitExec)):
+    if isinstance(p, (P.FilterExec, P.LimitExec, P.UnnestExec)):
         return True
     if isinstance(p, P.JoinExec):
         # semi/anti only mask; INNER/LEFT direct-address joins keep the

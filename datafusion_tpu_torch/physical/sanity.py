@@ -108,6 +108,12 @@ def _walk(p: P.PhysicalPlan, errors: List[str]) -> None:
                 errors.append(
                     f"{name}: input with {len(c.schema)} columns vs "
                     f"{len(p.schema)}-column union schema")
+    elif isinstance(p, P.UnnestExec):
+        _check_exprs(p.unnest_exprs, p.input.schema, name, errors)
+        want = len(p.input.schema) + len(p.unnest_exprs)
+        if len(p.schema) != want:
+            errors.append(f"{name}: schema has {len(p.schema)} columns, "
+                          f"expected {want}")
     elif isinstance(p, AliasExec):
         if len(p.schema) != len(p.input.schema):
             errors.append(f"{name}: column count changed "

@@ -6,6 +6,7 @@ torch device, metrics registry and memory accounting passed to every
 operator's execute()."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Optional
@@ -24,12 +25,28 @@ class ExecMetrics:
         self.elapsed_seconds += seconds
 
 
+# the device of the session whose SQL is being planned: the SQL planner
+# evaluates constant VALUES cells through an ExecContext that names none
+_PLANNING_DEVICE = None
+
+
+@contextlib.contextmanager
+def planning_device(device):
+    """ExecContexts made without a device inside this block run on `device`."""
+    global _PLANNING_DEVICE
+    prev, _PLANNING_DEVICE = _PLANNING_DEVICE, device
+    try:
+        yield
+    finally:
+        _PLANNING_DEVICE = prev
+
+
 class ExecContext:
     def __init__(self, config: Optional[Dict[str, Any]] = None, device=None):
         from .memory import GreedyMemoryPool, MemoryPool
 
         self.config = dict(config or {})
-        self.device = device
+        self.device = device if device is not None else _PLANNING_DEVICE
         self.metrics: Dict[str, ExecMetrics] = {}
         limit = (self.config.get("memory_limit_bytes")
                  or self.config.get("execution.memory_limit_bytes"))

@@ -496,17 +496,25 @@ def test_float_sums_are_per_segment():
 
 @pytest.mark.parametrize("fname", ["array_agg", "string_agg", "approx_distinct"])
 def test_unported_aggregates_raise(fname):
-    """array_agg and string_agg raise naming their ROADMAP item;
-    approx_distinct is ported (the exact count by sorted runs) and equals
-    the JAX package's."""
-    spec = TG.AggSpec(fname, ARG["i"], False, T.INT64)
+    """array_agg and string_agg (the nested types) and approx_distinct (the
+    exact count by sorted runs) are ported: each equals the JAX package's
+    global_aggregate, array_agg's list slot by slot, string_agg's joined
+    words."""
+    _, jargs, jfilters, jsel = _inputs("jax")
     gcols, args, filters, sel = _inputs("torch")
+    width = 1 << (int(np.asarray(jsel).sum()) - 1).bit_length()
+    extra = {"array_agg": width, "string_agg": (";", width)}.get(fname)
+    arg = "s" if fname == "string_agg" else "i"
+    spec = TG.AggSpec(fname, ARG[arg], False, T.INT64, extra=extra)
+    jspec = JG.AggSpec(fname, ARG[arg], False, T.INT64, extra=extra)
+    (want,), _ = jax.jit(lambda a, f, s: JG.global_aggregate(a, f, s, [jspec], 128))(
+        jargs, jfilters, jsel)
+    (got,), _ = TG.global_aggregate(args, filters, sel, [spec], 128)
     if fname == "approx_distinct":
-        _, jargs, jfilters, jsel = _inputs("jax")
-        jspec = JG.AggSpec(fname, ARG["i"], False, T.INT64)
-        (want,), _ = JG.global_aggregate(jargs, jfilters, jsel, [jspec], 128)
-        (got,), _ = TG.global_aggregate(args, filters, sel, [spec], 128)
         assert int(got.data[0]) == int(want.data[0]) > 1
         return
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TG.global_aggregate(args, filters, sel, [spec], 128)
+    n = int(want.list_lengths()[0])
+    assert n == int(got.lengths[0]) > 1 and got.meta == want.meta
+    ev = np.asarray(want.slot_valid())[0, :n]
+    assert np.array_equal(got.elem_valid[0, :n].numpy(), ev)
+    assert np.array_equal(got.data[0, :n].numpy()[ev], np.asarray(want.data)[0, :n][ev])

@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (datafusion_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--sf 1] [--h2o-rows 10000000] [--tpcds-sf 24]
-                          [--clickbench-rows 10000000] [--repeat 5]
+                          [--clickbench-rows 10000000] [--repeat 3]
 
 Run from the repository root on a machine with one CUDA card and nvcc. In
 order, it:
@@ -62,10 +62,12 @@ order, it:
      discovered list width and host syncs, N1/N3/N4/N6/N8 timed and
      profiled; a table whose largest group grows between two collect()s
      must send N1's query back to discovery;
-  9. generates the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
-     K = 100, seed 42) and runs groupby q1-q10 through the same API -- the
-     second main path -- each checked against a pandas oracle on the same
-     table (floats to rtol 1e-9 / atol 1e-9, the rest exact; q8, the two
+  9. takes the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
+     K = 100, seed 42; it and the hits table of 12 are generated in two
+     worker processes started with the run, beside phases 1-8) and runs
+     groupby q1-q10 through the same API -- the second main path -- each
+     checked against a pandas oracle on the same table (floats to rtol
+     1e-9 / atol 1e-9, the rest exact; q8, the two
      largest v3 per id6 through a window top-k, as a multiset) with the
      kernel's launches counted per query (q1, q2 and q4 launch it, on its
      shared and global routes); holds segment min/max on the card against
@@ -102,7 +104,28 @@ order, it:
      kernel held and timed at every new shape); q18, q27, q28 and q42 (and
      q42 over every counter) against a pandas/numpy oracle that does not use
      the port; CLICKBENCH_TIMED timed and profiled;
- 13. prints a {"kernels": [...]} line, the card's name and power limit, and,
+ 13. file tables (models/tpch/files.py, in a temporary directory removed
+     at the end): the SF 1 tables written to Parquet (decimals exact, a
+     page index; lineitem as 8 files in one directory, row groups of 2^20
+     rows) and registered with CREATE EXTERNAL TABLE ... STORED AS PARQUET;
+     each table's file bytes, full read ms and upload ms; all 22 queries
+     cold (sql()+collect(), the first scan), then through the checks of 7
+     (a captured graph, at most 2 host syncs per warm collect()), each
+     answer against the oracle; fails unless a warm collect() uploads
+     nothing, a profiled replay makes no host-to-device copy, and Q1 and
+     Q6 launch the kernel; warm eager and fused collect() in turns beside
+     the in-memory session's. The same for Q1 and Q6 over a pipe-delimited
+     lineitem.tbl with a declared column list. Pruning: Q6 over a copy of
+     lineitem sorted by l_shipdate (row groups of 2^17, a bloom filter on
+     l_orderkey) must prune row groups, an l_orderkey equality there must
+     prune by bloom filter, a TopK on l_orderkey must carry its dynamic
+     filter; each answer equal to the in-memory session's. The statement
+     cases of testing/statement_cases.py and COPY ... TO in five formats
+     on the card equal the CPU; `cli.main(["-f", file])` runs Q1 over the
+     Parquet files and must print its four groups. Last, the phase's
+     sessions (which sit in reference cycles) are collected, so that their
+     scans leave the card;
+ 14. prints a {"kernels": [...]} line, the card's name and power limit, and,
      last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA device it exits with code 2 at once.
@@ -112,9 +135,11 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import gc
 import inspect
 import itertools
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -242,20 +267,32 @@ def warm_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# host sleep at each edge of the recorded step: the profiler keeps only the
+# device events that fall inside the recorded window, and a device event's
+# time stamp can come out milliseconds before the host call that launched
+# it (down to -1.8 ms in tools/profiler_probe.py's runs), so a step whose
+# kernels all run in its first milliseconds could lose every one of them
+PROFILE_EDGE_S = 0.03
+
+
 def profiled(activities, warmup, active):
     """torch.profiler over two steps: warmup() runs in the profiler's
     warm-up step, whose events are discarded (the first device events of a
-    session can be lost), active() in the recorded step. Returns the
-    profile."""
+    session can be lost), active() in the recorded step, between two
+    PROFILE_EDGE_S sleeps with the card idle. Returns the profile."""
     from torch.profiler import profile, schedule
 
     torch.cuda.synchronize()
     with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for step in (warmup, active):
-            step()
-            torch.cuda.synchronize()
-            prof.step()
+        warmup()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_EDGE_S)
+        active()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_EDGE_S)
+        prof.step()
     return prof
 
 
@@ -703,16 +740,17 @@ def op_family(name: str) -> str:
     return "other"
 
 
-def profile_call(label: str, step, expect=()) -> dict:
+def profile_call(label: str, step, expect=(), dgs=None) -> dict:
     """One call of step() (a warm collect()) under torch.profiler, after one
     in its warm-up step: device busy time summed over kernels and copies on
     the card, the host wall time of the window, the kernels that took the
-    most device time, the device time of each op family (OP_FAMILIES) and
-    the dense kernel's launches the profiler saw. A profile that lost every
-    device event, or a family in `expect`, is taken again, a moment later
-    (up to 6 times): a profile of a graph replay now and then comes back
-    without any device event (1 profiling session in 12 in one run on an
-    H100)."""
+    most device time, the device time of each op family (OP_FAMILIES), the
+    dense kernel's launches the profiler saw, and the least offset of a
+    device event's start from its launch call on the host (negative when
+    the device time stamps run early: PROFILE_EDGE_S must stay above it). A
+    profile that lost every device event, or a family in `expect`, or some
+    of the `dgs` dense kernel launches the step is known to make, is taken
+    again, a moment later (up to 6 times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -735,11 +773,18 @@ def profile_call(label: str, step, expect=()) -> dict:
                   and e.self_device_time_total > 0
                   and not e.key.startswith("ProfilerStep")]
         if device and all(any(op_family(e.key) == f for e in device)
-                          for f in expect):
+                          for f in expect) and (
+                dgs is None
+                or sum(e.count for e in device if "dgs_" in e.key) >= dgs):
             break
     check(bool(device), f"profile {label}: no device events in 6 attempts")
     wall_ms = wall[0]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    events = list(prof.profiler.kineto_results.events())
+    launch = {e.correlation_id(): e.start_ns() for e in events
+              if e.device_type() == DeviceType.CPU and e.name().startswith("cuda")}
+    offsets = [(e.start_ns() - launch[e.correlation_id()]) / 1e3 for e in events
+               if e.device_type() == DeviceType.CUDA and e.correlation_id() in launch]
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
     families = {}
     for e in device:
@@ -747,10 +792,12 @@ def profile_call(label: str, step, expect=()) -> dict:
         f["ms"] += e.self_device_time_total / 1e3
         f["count"] += e.count
     return {"profile": label, "attempts": attempt, "wall_ms": wall_ms,
+            "launch_to_start_us_min": min(offsets, default=None),
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_ops": sum(e.count for e in device),
             "dgs_launches": sum(e.count for e in device if "dgs_" in e.key),
+            "htod_copies": sum(e.count for e in device if "HtoD" in e.key),
             "families": families,
             "top": [{"name": e.key[:90], "count": e.count,
                      "ms": e.self_device_time_total / 1e3} for e in top]}
@@ -1133,7 +1180,8 @@ def fused_query(ctx, label: str, sql: str, same, repeat: int, timed: bool = True
         out["host_syncs"]["eager"] = host_syncs(lambda: eager_collect(ctx, df))
         expect = ("dense_groupby_sums",) if launches else ()
         eager = profile_call(f"{label}_eager", lambda: eager_collect(ctx, df), expect)
-        fused = profile_call(f"{label}_fused", df.collect, expect)
+        fused = profile_call(f"{label}_fused", df.collect, expect,
+                             dgs=steady_launches)
         check(fused["dgs_launches"] == steady_launches,
               f"{label}: {fused['dgs_launches']} dense kernel launches in one "
               f"replay, {steady_launches} in the steady state's eager run")
@@ -1597,25 +1645,26 @@ def device_bytes(provider) -> int:
     return total
 
 
-def run_clickbench(rows: int, repeat: int, shapes: dict, seen: set, iters: int,
-                   flush, baseline) -> int:
+def run_clickbench(rows: int, generated, repeat: int, shapes: dict, seen: set,
+                   iters: int, flush, baseline) -> int:
     """The 43 ClickBench queries over `rows` generated hits rows (every
-    column on the card) through the public API: each query's discovery
-    (kernel inputs recorded, launches counted), its steady state
+    column on the card; `generated`: the table from generate_table) through
+    the public API: each query's discovery (kernel inputs recorded,
+    launches counted), its steady state
     (fused_query: each later answer equal to discovery's, a captured graph,
     at most 2 host syncs per warm collect()), q18, q27, q28 and q42 (and
     q42 over every counter) against clickbench_oracle; the kernel held and
     timed at every new shape; then the CLICKBENCH_TIMED steady states timed
     and profiled. Returns the kernel's launches over the discoveries."""
     t0 = time.perf_counter()
-    table = generate_hits(rows)
-    gen_s = time.perf_counter() - t0
+    table, gen_s = generated.get()
+    wait_s = time.perf_counter() - t0
     ctx = SessionContext()
     ctx.register_table("hits", table)
     t0 = time.perf_counter()
     ctx.catalog.get("hits").scan_device(ctx.exec_context())  # every column
     torch.cuda.synchronize()
-    emit({"clickbench_datagen_s": gen_s, "rows": rows,
+    emit({"clickbench_datagen_s": gen_s, "datagen_wait_s": wait_s, "rows": rows,
           "columns": len(table.schema.fields), "upload_s": time.perf_counter() - t0,
           "hits_device_bytes": device_bytes(ctx.catalog.get("hits"))})
     sqls = {f"q{qid}": clickbench_query(qid, rows)
@@ -1960,6 +2009,313 @@ def _plan_nodes(df) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. file tables and the session's statements
+# ---------------------------------------------------------------------------
+
+FILES_REPEAT = 3
+# Q1 and Q6 over the CSV table; every query over the Parquet tables
+FILES_CSV_QUERIES = (1, 6)
+# row groups of the l_shipdate-sorted copy of lineitem
+SORTED_ROW_GROUP = 1 << 17
+CLI_Q1_GROUPS = ("A F", "N F", "N O", "R F")
+
+
+class RecordUploads:
+    """Host tables uploaded through the catalog's to_device while active
+    (every file provider's upload goes through it)."""
+
+    def __enter__(self):
+        from datafusion_tpu_torch.catalog import catalog as PC
+
+        self.rows, self._mod, self._orig = [], PC, PC.to_device
+
+        def recording(table, *a, **kw):
+            self.rows.append(table.num_rows)
+            return self._orig(table, *a, **kw)
+
+        PC.to_device = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.to_device = self._orig
+
+
+def file_bytes(location: str) -> int:
+    if os.path.isdir(location):
+        return sum(os.path.getsize(os.path.join(location, f))
+                   for f in os.listdir(location))
+    return os.path.getsize(location)
+
+
+def read_and_upload_ms(provider, device, card: str) -> dict:
+    """A whole Parquet table read from its files (8 threads) into a host
+    Table, then uploaded to the card column by column, each timed."""
+    from datafusion_tpu_torch.data.device import to_device
+
+    ds = provider._ds
+    t0 = time.perf_counter()
+    at = ds.read_units([(p, list(rgs)) for p, rgs in ds.plan_units([])], None,
+                       threads=8)
+    host = Table.from_arrow(at)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rel = to_device(host, device=device)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(int(t.numel() * t.element_size()) for c in rel.columns
+                 for t in (c.data, c.validity) if t is not None)
+    del rel
+    return {"rows": host.num_rows, "read_ms": read_ms, "upload_ms": upload_ms,
+            "device_bytes": nbytes, "card": card}
+
+
+def files_query(mem, fctx, label: str, sql: str, same, repeat: int,
+                card: str, timed: bool = True) -> dict:
+    """One query over file tables: sql()+collect() cold (the first scan
+    reads and uploads), then fused_query's checks (a captured graph, at most
+    2 host syncs per warm collect()) on the same DataFrame; a warm collect()
+    must upload nothing and a profiled replay must make no host-to-device
+    copy. When `timed`: eager and fused collect() in turns beside the
+    in-memory session's, on the same query."""
+    DA.reset_launches()
+    with RecordUploads() as up:
+        t0 = time.perf_counter()
+        df = fctx.sql(sql)
+        got = df.collect()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+    same(got)
+    launches = DA.launches
+    out = fused_query(fctx, label, sql, same, repeat, timed=False,
+                      discovered=(df, cold_ms, launches))
+    with RecordUploads() as warm:
+        df.collect()
+    check(not warm.rows, f"{label}: a warm collect() uploaded {warm.rows} rows")
+    expect = ("dense_groupby_sums",) if launches else ()
+    prof = profile_call(f"{label}_fused", df.collect, expect)
+    check(prof["htod_copies"] == 0,
+          f"{label}: {prof['htod_copies']} host-to-device copies in a replay")
+    out.update({"card": card, "cold_sql_collect_ms": cold_ms,
+                "uploads_cold_rows": up.rows, "replay_htod_copies": 0,
+                "replay_busy_ms": prof["device_busy_ms"],
+                "replay_profile_attempts": prof["attempts"],
+                "replay_idle_share": prof["device_idle_share"],
+                "dgs_launches_replay": prof["dgs_launches"]})
+    if timed:
+        mdf = mem.sql(sql)
+        for _ in range(3):  # discovery, capture, a replay
+            mdf.collect()
+        runs = {"files_eager": lambda: eager_collect(fctx, df),
+                "files_fused": df.collect,
+                "memory_eager": lambda: eager_collect(mem, mdf),
+                "memory_fused": mdf.collect}
+        names = list(runs)
+        turns = {n: [] for n in names}
+        for i in range(repeat):
+            for n in names[i % 4:] + names[:i % 4]:
+                t0 = time.perf_counter()
+                runs[n]()
+                turns[n].append((time.perf_counter() - t0) * 1e3)
+        out["collect_ms_median"] = {n: statistics.median(v) for n, v in turns.items()}
+        out["collect_ms_in_turns"] = turns
+        del mdf
+    del df
+    torch.cuda.empty_cache()
+    out["memory_reserved_after"] = torch.cuda.memory_reserved()
+    return out
+
+
+def run_files(mem, tables: dict, refs: dict, sf: float, repeat: int, card: str,
+              step_done=None) -> int:
+    """The files phase, in a temporary directory removed at the end: TPC-H
+    from Parquet (all 22 queries against the oracle), Q1 and Q6 from a
+    pipe-delimited `.tbl` with a declared column list, pruning on a copy of
+    lineitem sorted by l_shipdate (statistics, bloom filter, TopK), the
+    statement cases on the card against the CPU, and the CLI over a SQL
+    file. `mem` is the in-memory session of the same tables; `step_done(name)`,
+    where given, is called after each step. Returns the dense kernel's
+    launches in the queries' discovery runs."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from datafusion_tpu_torch import cli
+    from datafusion_tpu_torch.models.tpch import files as TF
+    from datafusion_tpu_torch.testing import statement_cases as SC
+
+    step_done = step_done or (lambda name: None)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    launches = 0
+    try:
+        # 1. TPC-H from Parquet
+        t0 = time.perf_counter()
+        locs = TF.write_tpch_parquet(tables, tmp, lineitem_files=8)
+        emit({"files_written": "parquet", "s": time.perf_counter() - t0,
+              "card": card})
+        fctx = SessionContext()
+        for name in tables:
+            fctx.sql(TF.external_table_sql(name, locs[name]))
+        for name in tables:
+            emit({"file_table": name, "format": "parquet",
+                  "file_bytes": file_bytes(locs[name]),
+                  "files": len(os.listdir(locs[name]))
+                  if os.path.isdir(locs[name]) else 1,
+                  **read_and_upload_ms(fctx.catalog.get(name), fctx.device, card)})
+        step_done("parquet_read")
+        for qid in range(1, 23):
+            def same(got, qid=qid):
+                diff = frames_diff(got.to_pandas(), refs[qid],
+                                   ordered=qid in LIMIT_QUERIES)
+                check(diff is None, f"files Q{qid} differs from the pandas "
+                                    f"oracle: {diff}")
+            out = files_query(mem, fctx, f"files_parquet_q{qid}", query(qid, sf),
+                              same, repeat, card)
+            launches += out["dgs_launches_discovery"]
+            if qid in (1, 6):
+                check(out["dgs_launches_discovery"] > 0,
+                      f"Parquet Q{qid} never launched dense_groupby_sums")
+            emit(out)
+        emit({"phase": "files_parquet", "lineitem_scans_cached":
+              len(fctx.catalog.get("lineitem")._device),
+              "memory_reserved": torch.cuda.memory_reserved(), "card": card})
+        del fctx
+        step_done("parquet_queries")
+
+        # 2. Q1 and Q6 from pipe-delimited .tbl text
+        tbl = os.path.join(tmp, "lineitem.tbl")
+        t0 = time.perf_counter()
+        TF.write_tbl(tables["lineitem"], tbl)
+        emit({"files_written": "tbl", "s": time.perf_counter() - t0,
+              "file_bytes": os.path.getsize(tbl), "card": card})
+        cctx = SessionContext()
+        cctx.sql(TF.external_table_sql("lineitem", tbl, "tbl", tables["lineitem"]))
+        prov = cctx.catalog.get("lineitem")
+        t0 = time.perf_counter()
+        host = prov.host_table()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        check([repr(f.dtype) for f in host.schema.fields]
+              == [repr(f.dtype) for f in tables["lineitem"].schema.fields],
+              "the .tbl table's types differ from the generated lineitem's")
+        emit({"file_table": "lineitem", "format": "tbl", "rows": host.num_rows,
+              "read_ms": read_ms, "card": card})
+        for qid in FILES_CSV_QUERIES:
+            def same(got, qid=qid):
+                diff = frames_diff(got.to_pandas(), refs[qid], ordered=True)
+                check(diff is None, f"CSV Q{qid} differs from the pandas "
+                                    f"oracle: {diff}")
+            out = files_query(mem, cctx, f"files_csv_q{qid}", query(qid, sf), same,
+                              repeat, card)
+            launches += out["dgs_launches_discovery"]
+            check(out["dgs_launches_discovery"] > 0,
+                  f"CSV Q{qid} never launched dense_groupby_sums")
+            emit(out)
+        del cctx, prov, host
+        os.remove(tbl)
+        step_done("csv")
+
+        # 3. pruning on the card
+        sorted_path = os.path.join(tmp, "lineitem_sorted.parquet")
+        t0 = time.perf_counter()
+        TF.write_sorted_lineitem(tables["lineitem"], sorted_path, SORTED_ROW_GROUP)
+        emit({"files_written": "lineitem_sorted", "row_group_rows": SORTED_ROW_GROUP,
+              "s": time.perf_counter() - t0,
+              "file_bytes": os.path.getsize(sorted_path), "card": card})
+        sctx = SessionContext()
+        sctx.sql(TF.external_table_sql("lineitem", sorted_path))
+        keys = tables["lineitem"].column("l_orderkey").data
+        bloom_key = int(keys[len(keys) // 2])  # an order in the middle
+        fctx = SessionContext()
+        fctx.sql(TF.external_table_sql("lineitem", locs["lineitem"]))
+        topk_sql = ("SELECT l_orderkey, l_linenumber, l_extendedprice FROM lineitem "
+                    "ORDER BY l_orderkey DESC, l_linenumber LIMIT 10")
+        cases = [
+            ("q6_sorted", sctx, query(6, sf), "row_groups_pruned"),
+            ("bloom_sorted", sctx, "SELECT count(*) AS n, sum(l_quantity) AS q FROM "
+             f"lineitem WHERE l_orderkey = {bloom_key}", "row_groups_bloom_pruned"),
+            ("topk_sorted", sctx, topk_sql, None),
+            ("topk_files", fctx, topk_sql, "row_groups_pruned"),
+        ]
+        for label, ctx, sql, counter in cases:
+            df = ctx.sql(sql)
+            t0 = time.perf_counter()
+            got = df.to_pydict()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            want = mem.sql(sql).to_pydict()
+            check(got == want, f"pruning {label}: {got} != the in-memory {want}")
+            check(all(len(v) > 0 for v in got.values()), f"pruning {label}: no rows")
+            for _ in range(2):
+                check(df.to_pydict() == want, f"pruning {label}: a warm answer differs")
+            scan = dict(ctx.catalog.get("lineitem").last_scan)
+            topk = [f.name() for p in _plan_nodes(df) if isinstance(p, P.ScanExec)
+                    for f in p._topk_filters()]
+            if counter is not None:
+                check(scan[counter] > 0, f"pruning {label}: {counter} is 0: {scan}")
+            if label.startswith("topk"):
+                check(bool(topk) and " topk" in df.physical_plan().display(),
+                      f"pruning {label}: the scan carries no TopK filter")
+            emit({"pruning": label, "last_scan": scan, "topk_filters": topk,
+                  "rows": len(next(iter(got.values()))), "cold_ms": cold_ms,
+                  "steady": type(df._fused_query()._fused).__name__, "card": card})
+        del sctx, fctx, df
+        step_done("pruning")
+
+        # 4. statements on the card against the CPU, and the CLI
+        for sql in SC.STATEMENTS:
+            on_card = SC.run(SessionContext(), SC.SETUP + sql)
+            on_cpu = SC.run(SessionContext(device="cpu"), SC.SETUP + sql)
+            check(on_card == on_cpu, f"statement {sql!r}: card {on_card} != cpu {on_cpu}")
+        for fmt, ext, opts in SC.COPY_FORMATS:
+            got = [SC.copy_round_trip(ctx, fmt, opts, os.path.join(tmp, f"{i}.{ext}"))
+                   for i, ctx in enumerate((SessionContext(),
+                                            SessionContext(device="cpu")))]
+            check(got[0] == got[1], f"COPY {fmt}: card {got[0]} != cpu {got[1]}")
+            check(got[0][0] == {"count": [4]}, f"COPY {fmt}: {got[0][0]}")
+        emit({"statements": len(SC.STATEMENTS), "copy_formats":
+              [f for f, _, _ in SC.COPY_FORMATS], "card_equals_cpu": True,
+              "card": card})
+        step_done("statements")
+        script = os.path.join(tmp, "q1.sql")
+        with open(script, "w") as f:
+            f.write(TF.external_table_sql("lineitem", locs["lineitem"]) + ";\n"
+                    + query(1, sf))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-f", script])
+        text = buf.getvalue()
+        check(rc == 0, f"the CLI exited {rc}")
+        check(all(re.search(rf"^\s*{g[0]}\s+{g[2]}\s", text, re.M)
+                  for g in CLI_Q1_GROUPS) and "4 row(s)" in text,
+              f"the CLI did not print Q1's four groups: {text[-2000:]}")
+        emit({"cli": "-f q1.sql", "rc": rc, "s": time.perf_counter() - t0,
+              "rows_line": text.strip().splitlines()[-1], "card": card})
+        step_done("cli")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # a session and its catalog refer to each other (as do the SQL
+    # planner's closures): without a collection, the phase's sessions and
+    # their uploaded scans would stay on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "files", "s": time.perf_counter() - t_phase,
+          "memory_reserved": torch.cuda.memory_reserved(), "card": card})
+    return launches
+
+
+def generate_table(kind: str, rows: int):
+    """(the h2o groupby table or the ClickBench hits table of `rows` rows,
+    the seconds it took), in a worker process."""
+    t0 = time.perf_counter()
+    if kind == "h2o":
+        table = generate_groupby(rows, k=H2O_K, seed=42)
+    else:
+        table = generate_hits(rows)
+    return table, time.perf_counter() - t0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -1967,7 +2323,7 @@ def main() -> int:
                     help="rows of the h2o groupby table (K = 100)")
     ap.add_argument("--tpcds-sf", type=float, default=24.0,
                     help="TPC-DS generator scale (24: store_sales 2,880,000 rows)")
-    ap.add_argument("--repeat", type=int, default=5,
+    ap.add_argument("--repeat", type=int, default=3,
                     help="warm end-to-end runs per query")
     ap.add_argument("--clickbench-rows", type=int, default=10_000_000,
                     help="rows of the synthetic ClickBench hits table")
@@ -1979,7 +2335,25 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this smoke test runs only on the card", file=sys.stderr)
         return 2
+    # the h2o and ClickBench tables take minutes of host time to generate:
+    # two worker processes make them while the earlier phases run
+    workers = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        generated = {
+            "h2o": workers.apply_async(generate_table, ("h2o", args.h2o_rows)),
+            "hits": workers.apply_async(generate_table,
+                                        ("hits", args.clickbench_rows))}
+        return run(args, generated)
+    finally:
+        workers.terminate()
+        workers.join()
+
+
+def run(args, generated: dict) -> int:
+    """Every phase, in the order of the module's docstring; `generated`
+    holds the h2o and hits tables being made by generate_table."""
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
 
     card = card_line()
     print(card, flush=True)
@@ -2054,15 +2428,18 @@ def main() -> int:
             emit({"kernel_timing": KERNEL["name"], "shape": label, **t})
 
     run_fused_tpch(ctx, args.sf, refs, args.repeat)
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "tpch"})
     run_nested(ctx, tables, min(args.repeat, NESTED_REPEAT))
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "nested"})
 
     check_segment_extremes(dev)
     t0 = time.perf_counter()
-    h2o = generate_groupby(args.h2o_rows, k=H2O_K, seed=42)
-    gen_s = time.perf_counter() - t0
+    h2o, gen_s = generated["h2o"].get()
+    wait_s = time.perf_counter() - t0
     ctx.register_table("x", h2o)
     frame = h2o_frame(h2o)
-    emit({"h2o_datagen_s": gen_s, "rows": h2o.num_rows, "k": H2O_K,
+    emit({"h2o_datagen_s": gen_s, "datagen_wait_s": wait_s,
+          "rows": h2o.num_rows, "k": H2O_K,
           "distinct": {f.name: len(c.dictionary.values)
                        for f, c in zip(h2o.schema.fields, h2o.columns)
                        if c.dictionary is not None}})
@@ -2080,15 +2457,22 @@ def main() -> int:
         emit(fused_query(ctx, f"h2o_q{qid}", GROUPBY_QUERIES[qid - 1], same,
                          args.repeat))
     emit({"phase": "fused_h2o", "memory_reserved": torch.cuda.memory_reserved()})
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "h2o"})
 
     run_tpcds_card_vs_cpu(TPCDS_CHECK_SF)
     launches += run_tpcds(args.tpcds_sf, min(args.repeat, TPCDS_REPEAT), shapes,
                           seen, args.iters, flush, baseline)
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "tpcds"})
 
     run_functions()
     run_clickbench_check(CLICKBENCH_CHECK_ROWS)
-    launches += run_clickbench(args.clickbench_rows, min(args.repeat, CLICKBENCH_REPEAT),
+    launches += run_clickbench(args.clickbench_rows, generated["hits"],
+                               min(args.repeat, CLICKBENCH_REPEAT),
                                shapes, seen, args.iters, flush, baseline)
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "clickbench"})
+    launches += run_files(ctx, tables, refs, args.sf,
+                          min(args.repeat, FILES_REPEAT), card)
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "files"})
 
     q1 = shapes["q1"]
     emit({"kernels": [{**KERNEL, "launches": launches, "max_abs_err": max_err,

@@ -1,20 +1,25 @@
 """SessionContext + DataFrame: the user-facing API.
 
-Port of the SQL path of datafusion_tpu/context.py: register in-memory tables,
-run SELECT and EXPLAIN statements, CREATE TABLE ... AS SELECT, CREATE
-TABLE t(...) and DROP TABLE, collect results. Plans run on the session's
-device, which is the CUDA card unless the caller passes another
+Port of the SQL path of datafusion_tpu/context.py: register in-memory
+tables, pyarrow tables, pandas frames and files (Parquet, CSV, JSON, Arrow
+IPC, Avro), run the session's statements (SELECT, EXPLAIN, CREATE [EXTERNAL]
+TABLE, CREATE VIEW, DROP TABLE, COPY ... TO, INSERT INTO, DELETE, UPDATE,
+SHOW, SET, PREPARE/EXECUTE/DEALLOCATE), collect results. Plans run on the
+session's device, which is the CUDA card unless the caller passes another
 (`SessionContext(device="cpu")`): operator by operator the first time a
-DataFrame is collected, then as a steady state (physical/fused.py). Other DDL, DML, file tables, UDF
-registration and streaming execution are not ported yet (ROADMAP queue 1,
-item 12 'Remaining surface')."""
+DataFrame is collected, then as a steady state (physical/fused.py). EXPLAIN
+ANALYZE, UDF registration, streaming execution, the DataFrame plan-building
+methods and the Substrait/protobuf interchange are not ported yet (ROADMAP
+queue 1, item 12 'Remaining surface')."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from .catalog.catalog import Catalog, MemTable, TableProvider
+from .catalog.catalog import (ArrowTable, AvroTable, Catalog, CsvTable,
+                              JsonTable, MemTable, ParquetTable, TableProvider)
 from .common import types as T
 from .common.errors import PlanError
+from .common.schema import Field, Schema
 from .expr import nodes as E
 from .data.device import resolve_device, to_host
 from .data.table import Table
@@ -37,9 +42,19 @@ class SessionContext:
         self.config = dict(config or {})
         self.options = ConfigOptions(self.config)
         self.functions = FunctionRegistry()
+        self._prepared: Dict[str, object] = {}  # PREPARE name -> A.Prepare
         # back-link for session-scoped virtual tables
         # (information_schema.df_settings / routines)
         self.catalog.session = self
+
+    def register_object_store(self, url: str, store) -> None:
+        """Register an ObjectStore for a URL scheme/authority so external
+        tables can point at non-local locations (reference:
+        RuntimeEnv::register_object_store,
+        execution/src/object_store.rs ObjectStoreRegistry)."""
+        from .io.object_store import default_registry
+
+        default_registry().register(url, store)
 
     def register_table(self, name: str, data) -> None:
         if isinstance(data, TableProvider):
@@ -50,10 +65,30 @@ class SessionContext:
             self.catalog.register(name, MemTable(Table.from_pydict(data)))
         else:
             import pandas as pd
+            import pyarrow as pa
 
-            if not isinstance(data, pd.DataFrame):
+            if isinstance(data, pa.Table):
+                self.catalog.register(name, MemTable(Table.from_arrow(data)))
+            elif isinstance(data, pd.DataFrame):
+                self.catalog.register(name, MemTable(Table.from_pandas(data)))
+            else:
                 raise PlanError(f"cannot register {type(data)}")
-            self.catalog.register(name, MemTable(Table.from_pandas(data)))
+
+    def register_parquet(self, name: str, path: str) -> None:
+        self.catalog.register(name, ParquetTable(path))
+
+    def register_csv(self, name: str, path: str, has_header: bool = True,
+                     delimiter: str = ",") -> None:
+        self.catalog.register(name, CsvTable(path, has_header, delimiter))
+
+    def register_json(self, name: str, path: str) -> None:
+        self.catalog.register(name, JsonTable(path))
+
+    def deregister_table(self, name: str) -> None:
+        self.catalog.deregister(name)
+
+    def table(self, name: str) -> "DataFrame":
+        return DataFrame(self, L.TableScan(name, self.catalog.get(name)))
 
     @with_registry
     def sql(self, query: str) -> "DataFrame":
@@ -79,6 +114,31 @@ class SessionContext:
         return out
 
     def _run_statement(self, stmt, A, SqlPlanner) -> Optional["DataFrame"]:
+        if isinstance(stmt, A.Prepare):
+            # reference: LogicalPlan::Statement(Prepare) stored on the
+            # session; EXECUTE re-plans with params substituted
+            # (expr/src/logical_plan/plan.rs replace_params_with_values)
+            self._prepared[stmt.name.lower()] = stmt
+            return None
+        if isinstance(stmt, A.Execute):
+            prep = self._prepared.get(stmt.name.lower())
+            if prep is None:
+                raise PlanError(f"prepared statement {stmt.name!r} not found")
+            values = []
+            for i, p in enumerate(stmt.params):
+                if not isinstance(p, E.Literal):
+                    raise PlanError("EXECUTE parameters must be literals")
+                if prep.param_types and i < len(prep.param_types):
+                    values.append(E.Literal(p.value, prep.param_types[i]))
+                else:
+                    values.append(p)
+            return self._run_statement(_replace_params(prep.stmt, values),
+                                       A, SqlPlanner)
+        if isinstance(stmt, A.Deallocate):
+            if stmt.name.lower() not in self._prepared:
+                raise PlanError(f"prepared statement {stmt.name!r} not found")
+            del self._prepared[stmt.name.lower()]
+            return None
         if isinstance(stmt, A.SelectStmt):
             return DataFrame(self, SqlPlanner(self.catalog).plan_statement(stmt))
         if isinstance(stmt, A.Explain):
@@ -90,15 +150,51 @@ class SessionContext:
             lines = Table.from_pydict({"plan": text.splitlines()},
                                       {"plan": T.STRING})
             return DataFrame(self, L.TableScan("explain", MemTable(lines)))
+        if isinstance(stmt, A.CreateExternalTable):
+            self.catalog.register(stmt.name, _file_table(stmt))
+            return None
         if isinstance(stmt, A.CreateTableAs):
             self._create_table(stmt, SqlPlanner)
+            return None
+        if isinstance(stmt, A.CreateViewAs):
+            plan = SqlPlanner(self.catalog).plan_statement(stmt.query)
+            self.catalog.views[stmt.name.lower()] = plan
             return None
         if isinstance(stmt, A.DropTable):  # an absent table is not an error
             self.catalog.deregister(stmt.name)
             self.catalog.views.pop(stmt.name.lower(), None)
             return None
-        raise NotImplementedError(
-            f"{type(stmt).__name__} statements are not ported yet ({_SURFACE_ITEM})")
+        if isinstance(stmt, A.ShowTables):
+            return self._strings({"table_name": self.catalog.names()})
+        if isinstance(stmt, A.ShowVariable):
+            return self._show_variable(stmt)
+        if isinstance(stmt, A.ShowColumns):
+            return self._show_columns(stmt, SqlPlanner)
+        if isinstance(stmt, A.ShowCreateTable):
+            return self._show_create_table(stmt)
+        if isinstance(stmt, A.SetVariable):
+            # parse through the typed registry first; storing the raw string
+            # in self.config would override the parsed value in exec_context
+            # (and e.g. "false" is truthy)
+            self.options.set(stmt.key, stmt.value)
+            self.config[stmt.key] = self.options.to_dict().get(
+                stmt.key, stmt.value)
+            return None
+        if isinstance(stmt, A.InsertInto):
+            return self._insert_into(stmt, SqlPlanner)
+        if isinstance(stmt, A.Delete):
+            return self._delete(stmt, A, SqlPlanner)
+        if isinstance(stmt, A.Update):
+            return self._update(stmt, A, SqlPlanner)
+        if isinstance(stmt, A.CopyTo):
+            if isinstance(stmt.source, str):
+                table = self.table(stmt.source).collect()
+            else:
+                table = DataFrame(self, SqlPlanner(self.catalog).plan_statement(
+                    stmt.source)).collect()
+            _write_table(table, stmt.format, stmt.path)
+            return self._dml_count(table.num_rows)
+        raise PlanError(f"unsupported statement {type(stmt).__name__}")
 
     def _create_table(self, stmt, SqlPlanner) -> None:
         """CREATE [OR REPLACE] TABLE [IF NOT EXISTS] t AS SELECT ... (a
@@ -131,6 +227,162 @@ class SessionContext:
                 E.Alias(E.Cast(E.Column(f.name, f.qualifier), dt, False), n)
                 for f, (n, dt) in zip(fields, cols)])
         self.register_table(stmt.name, DataFrame(self, plan).collect())
+
+    def _strings(self, rows: Dict[str, list], nullable=()) -> "DataFrame":
+        """A statement's answer: string columns, given column-wise."""
+        names = list(rows)
+        n = len(rows[names[0]])
+        return DataFrame(self, L.Values(
+            Schema([Field(c, T.STRING, c in nullable) for c in names]),
+            [[E.lit(rows[c][i]) for c in names] for i in range(n)]))
+
+    def _show_variable(self, stmt) -> "DataFrame":
+        """SHOW ALL [VERBOSE] | SHOW <key> (reference: SqlToRel
+        show_variable -> information_schema.df_settings)."""
+        from .common.config import REGISTRY
+
+        if stmt.key.lower() == "all":
+            keys = sorted(REGISTRY)
+            rows = {"name": keys,
+                    "value": [str(self.options.get(k)) for k in keys]}
+            if stmt.verbose:
+                rows["description"] = [REGISTRY[k].doc for k in keys]
+        else:
+            v = self.options.get(stmt.key)
+            if v is None and stmt.key not in REGISTRY:
+                raise PlanError(f"unknown configuration option {stmt.key!r}")
+            rows = {"name": [stmt.key], "value": [str(v)]}
+        return self._strings(rows)
+
+    def _show_columns(self, stmt, SqlPlanner) -> "DataFrame":
+        """SHOW COLUMNS FROM t [LIKE pat | WHERE pred]."""
+        import re
+
+        prov = self.catalog.get(stmt.table)
+        like_re = None
+        if stmt.like is not None:
+            pat = re.escape(stmt.like).replace("%", ".*").replace("_", ".")
+            like_re = re.compile(f"^{pat}$", re.IGNORECASE)
+        names, types_, nulls = [], [], []
+        for f in prov.schema().fields:
+            if like_re is not None and not like_re.match(f.name):
+                continue
+            names.append(f.name)
+            types_.append(repr(f.dtype))
+            nulls.append("YES" if f.nullable else "NO")
+        n = len(names)
+        cols = {"table_catalog": [self.catalog.default_catalog] * n,
+                "table_schema": [self.catalog.default_schema] * n,
+                "table_name": [stmt.table] * n, "column_name": names,
+                "data_type": types_, "is_nullable": nulls}
+        t = Table.from_pydict(cols, {c: T.STRING for c in cols})
+        plan: L.LogicalPlan = L.TableScan("columns", MemTable(t), alias="columns")
+        if stmt.where is not None:
+            plan = L.Filter(plan, SqlPlanner(self.catalog).resolve(
+                stmt.where, plan.schema))
+        return DataFrame(self, plan)
+
+    def _show_create_table(self, stmt) -> "DataFrame":
+        """SHOW CREATE TABLE: a view's definition unparsed to SQL, NULL for
+        a table."""
+        from .sql.unparser import plan_to_sql
+
+        vname = stmt.name.lower()
+        definition = None
+        if vname in self.catalog.views:
+            try:
+                definition = ("CREATE VIEW " + stmt.name + " AS "
+                              + plan_to_sql(self.catalog.views[vname]))
+            except Exception:  # noqa: BLE001 -- not unparseable: NULL
+                definition = None
+        else:
+            self.catalog.get(stmt.name)  # raises if absent
+        return self._strings({"table_catalog": [self.catalog.default_catalog],
+                              "table_schema": [self.catalog.default_schema],
+                              "table_name": [stmt.name],
+                              "definition": [definition]},
+                             nullable=("definition",))
+
+    def _dml_count(self, n: int) -> "DataFrame":
+        return DataFrame(self, L.Values(
+            Schema([Field("count", T.INT64, False)]), [[E.lit(int(n))]]))
+
+    def _delete(self, stmt, A, SqlPlanner) -> "DataFrame":
+        """Eager DELETE on a registered table: keep rows where the predicate
+        is not TRUE, re-register (reference: LogicalPlan::Dml(Delete),
+        expr/src/logical_plan/plan.rs:211; test_files/dml_delete.slt)."""
+        target = self.catalog.get(stmt.table).host_table()
+        n_before = target.num_rows
+        if stmt.where is None:
+            new = Table.from_pydict(
+                {f.name: [] for f in target.schema.fields},
+                {f.name: f.dtype for f in target.schema.fields})
+        else:
+            # DELETE removes rows where pred IS TRUE; NULL predicates keep
+            keep = E.Not(E.ScalarFunction(
+                "coalesce", (stmt.where, E.lit(False))))
+            core = A.SelectCore([A.SelectItem(A.Star())],
+                                [A.Relation(stmt.table)], keep)
+            new = DataFrame(self, SqlPlanner(self.catalog).plan_statement(
+                A.SelectStmt(core))).collect()
+        self.catalog.register(stmt.table, MemTable(new))
+        return self._dml_count(n_before - new.num_rows)
+
+    def _update(self, stmt, A, SqlPlanner) -> "DataFrame":
+        """Eager UPDATE: rewrite assigned columns through CASE WHEN pred,
+        re-register (reference: Dml(Update), test_files/dml_update.slt)."""
+        target = self.catalog.get(stmt.table).host_table()
+        assigned = {c.lower(): e for c, e in stmt.assignments}
+        unknown = [c for c in assigned
+                   if c not in [f.name.lower() for f in target.schema.fields]]
+        if unknown:
+            raise PlanError(f"UPDATE column(s) not in table: {unknown}")
+        items = []
+        for f in target.schema.fields:
+            if f.name.lower() in assigned:
+                newv = E.Cast(assigned[f.name.lower()], f.dtype, False)
+                e = (newv if stmt.where is None else
+                     E.Case(None, ((stmt.where, newv),), E.Column(f.name)))
+            else:
+                e = E.Column(f.name)
+            items.append(A.SelectItem(e, f.name))
+        core = A.SelectCore(items, [A.Relation(stmt.table)])
+        new = DataFrame(self, SqlPlanner(self.catalog).plan_statement(
+            A.SelectStmt(core))).collect()
+        if stmt.where is None:
+            n = target.num_rows
+        else:
+            cnt_core = A.SelectCore(
+                [A.SelectItem(E.AggregateFunction("count", ()), "count")],
+                [A.Relation(stmt.table)], stmt.where)
+            cnt = DataFrame(self, SqlPlanner(self.catalog).plan_statement(
+                A.SelectStmt(cnt_core))).collect().to_pydict()
+            n = int(cnt["count"][0])
+        self.catalog.register(stmt.table, MemTable(new))
+        return self._dml_count(n)
+
+    def _insert_into(self, stmt, SqlPlanner) -> "DataFrame":
+        """Eager INSERT INTO: the table's rows and the new ones, re-registered
+        as an in-memory table (a DataFrame planned before keeps the old
+        provider)."""
+        target = self.catalog.get(stmt.table).host_table()
+        if isinstance(stmt.source, list):  # VALUES rows
+            names = stmt.columns or target.schema.names()
+            data = {n: [] for n in names}
+            for row in stmt.source:
+                for n, litexpr in zip(names, row):
+                    v = litexpr.value if isinstance(litexpr, E.Literal) else None
+                    if isinstance(litexpr, E.Negative) and isinstance(litexpr.expr, E.Literal):
+                        v = -litexpr.expr.value
+                    data[n].append(v)
+            types = {f.name: f.dtype for f in target.schema.fields if f.name in data}
+            new = Table.from_pydict(data, types)
+        else:
+            new = DataFrame(self, SqlPlanner(self.catalog).plan_statement(
+                stmt.source)).collect()
+        merged = Table.concat([target, _align_to(new, target)])
+        self.catalog.register(stmt.table, MemTable(merged))
+        return self._dml_count(new.num_rows)
 
     def exec_context(self) -> ExecContext:
         merged = self.options.to_dict()
@@ -204,6 +456,96 @@ class DataFrame:
 
     def to_pydict(self):
         return self.collect().to_pydict()
+
+    def write_parquet(self, path: str) -> None:
+        self.collect().write_parquet(path)
+
+    def write_csv(self, path: str) -> None:
+        self.collect().write_csv(path)
+
+
+def _file_table(stmt) -> TableProvider:
+    """The provider of CREATE EXTERNAL TABLE ... STORED AS <format>."""
+    if stmt.format == "parquet":
+        return ParquetTable(stmt.location)
+    if stmt.format == "csv":
+        return CsvTable(stmt.location, stmt.has_header, stmt.delimiter,
+                        schema=stmt.columns)
+    if stmt.format == "json":
+        return JsonTable(stmt.location)
+    if stmt.format in ("arrow", "ipc", "feather"):
+        return ArrowTable(stmt.location)
+    if stmt.format == "avro":
+        return AvroTable(stmt.location)
+    raise PlanError(f"unsupported format {stmt.format!r}")
+
+
+def _write_table(table: Table, fmt: str, path: str) -> None:
+    """COPY ... TO path STORED AS fmt: one file."""
+    if fmt == "parquet":
+        table.write_parquet(path)
+    elif fmt == "csv":
+        table.write_csv(path)
+    elif fmt == "json":
+        import json
+
+        cols = table.to_pydict()
+        names = list(cols)
+        with open(path, "w") as fh:
+            for i in range(table.num_rows):
+                json.dump({n: cols[n][i] for n in names}, fh, default=str)
+                fh.write("\n")
+    elif fmt in ("arrow", "ipc", "feather"):
+        import pyarrow.ipc as pipc
+
+        at = table.to_arrow()
+        with pipc.new_file(path, at.schema) as w:
+            w.write_table(at)
+    elif fmt == "avro":
+        from .io.avro import write_avro
+
+        write_avro(table.to_arrow(), path)
+    else:
+        raise PlanError(f"unsupported COPY format {fmt!r}")
+
+
+def _align_to(new: Table, target: Table) -> Table:
+    """Reorder/rename inserted columns positionally to the target schema."""
+    if new.schema.names() == target.schema.names():
+        return new
+    if len(new.schema) != len(target.schema):
+        raise PlanError(
+            f"INSERT column count {len(new.schema)} != table {len(target.schema)}")
+    import dataclasses
+
+    fields = [dataclasses.replace(f, name=t.name)
+              for f, t in zip(new.schema.fields, target.schema.fields)]
+    return Table(Schema(fields), new.columns)
+
+
+def _replace_params(obj, values):
+    """Rebuild a parsed-statement tree with $N placeholders replaced by the
+    EXECUTE argument literals (reference:
+    LogicalPlan::replace_params_with_values, expr/src/logical_plan/plan.rs).
+    Walks AST/Expr dataclasses, tuples and lists generically."""
+    import dataclasses
+
+    if isinstance(obj, E.Placeholder):
+        idx = int(obj.pid.lstrip("$")) - 1
+        if not 0 <= idx < len(values):
+            raise PlanError(f"no value for placeholder {obj.pid}")
+        return values[idx]
+    if isinstance(obj, (list, tuple)):
+        return type(obj)([_replace_params(x, values) for x in obj])
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        changes = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            nv = _replace_params(v, values)
+            if nv is not v:
+                changes[f.name] = nv
+        return dataclasses.replace(obj, **changes) if changes else obj
+    return obj
 
 
 def _tree_render(indent_text: str) -> str:

@@ -124,16 +124,57 @@ class ScanExec(PhysicalPlan):
         self.filters = tuple(filters)  # pushed-down pruning hints (inexact)
 
     def execute(self, ctx: ExecContext) -> DeviceRelation:
-        rel = self.provider.scan_device(ctx, filters=self.filters,
-                                        projection=self.projection)
+        rel = self.provider.scan_device(
+            ctx, filters=self.filters + self._topk_filters(),
+            projection=self.projection)
         # select/rename columns to match the (qualified, possibly projected) schema
         src = {f.name: c for f, c in zip(rel.schema.fields, rel.columns)}
         cols = [src[f.name] for f in self.schema.fields]
         return DeviceRelation(self.schema, tuple(cols), rel.sel)
 
+    def _topk_filters(self) -> tuple:
+        """Dynamic-filter pushdown: when a TopK sits directly above this scan
+        (the planner attaches `_topk_hint`), the k-th key value -- computed
+        once on the host from the key column alone -- becomes a range
+        predicate that prunes row groups and pages before the full read
+        (reference: TopK -> DynamicFilterPhysicalExpr -> scan,
+        physical-plan/src/topk/mod.rs:113 + sorts/sort.rs:930). Inclusive
+        bounds keep every tie, so pruning stays exact."""
+        hint = getattr(self, "_topk_hint", None)
+        if hint is None or self.filters:
+            return ()
+        cached = getattr(self, "_topk_cache", None)
+        if cached is not None:
+            return cached
+        col, k, desc = hint
+        out = ()
+        ds = getattr(self.provider, "_ds", None)
+        try:
+            if ds is not None:
+                st = ds.column_stats().get(col)
+                # NULL keys may sort into the top k: bail unless null-free
+                if st is not None and st.null_count == 0:
+                    import numpy as np
+
+                    arr = ds.read((), columns=[col]).column(col).to_numpy()
+                    if arr.dtype.kind in "if" and len(arr) > k:
+                        if desc:
+                            t = arr[np.argpartition(arr, len(arr) - k)[len(arr) - k]]
+                            op = E.Op.GE
+                        else:
+                            t = arr[np.argpartition(arr, k - 1)[k - 1]]
+                            op = E.Op.LE
+                        v = float(t) if arr.dtype.kind == "f" else int(t)
+                        out = (E.BinaryOp(op, E.Column(col), E.lit(v)),)
+        except Exception:  # noqa: BLE001 -- pruning is best-effort
+            out = ()
+        self._topk_cache = out
+        return out
+
     def _line(self):
         f = f" pushdown={len(self.filters)}" if self.filters else ""
-        return f"ScanExec: {self.alias}{f}"
+        h = " topk" if getattr(self, "_topk_hint", None) else ""
+        return f"ScanExec: {self.alias}{f}{h}"
 
 
 class FilterExec(PhysicalPlan):

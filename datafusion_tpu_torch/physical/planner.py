@@ -87,8 +87,11 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
         from .ordering import ordering_satisfies
 
         if ordering_satisfies(inp, plan.sort_specs):
-            return P.SortExec(inp, plan.sort_specs, plan.fetch, presorted=True)
-        return P.SortExec(_maybe_compact(inp), plan.sort_specs, plan.fetch)
+            s = P.SortExec(inp, plan.sort_specs, plan.fetch, presorted=True)
+        else:
+            s = P.SortExec(_maybe_compact(inp), plan.sort_specs, plan.fetch)
+        _attach_topk_hint(s)
+        return s
     if isinstance(plan, L.Limit):
         return P.LimitExec(child(plan.input), plan.skip, plan.fetch)
     if isinstance(plan, L.Join):
@@ -125,6 +128,47 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
                 f"{type(plan).__name__} is not ported to datafusion_tpu_torch "
                 f"yet (ROADMAP queue 1, {item})")
     raise PlanError(f"no physical plan for {type(plan).__name__}")
+
+
+def _attach_topk_hint(s: P.SortExec) -> None:
+    """When a TopK (Sort with fetch) sits over a bare scan chain, record
+    (key column, k, desc) on the ScanExec so its provider can push the k-th
+    key value back into pruning (ScanExec._topk_filters; reference:
+    topk/mod.rs:113 DynamicFilterPhysicalExpr). Inclusive thresholds keep
+    ties, so a weaker first-key-only bound stays exact for multi-key sorts.
+    FilterExec aborts the walk: a post-filter k-th value is deeper than the
+    unfiltered one, and an unfiltered threshold could prune qualifying
+    rows."""
+    if s.fetch is None or not (0 < s.fetch <= (1 << 16)) or not s.specs:
+        return
+    e = s.specs[0].expr
+    if isinstance(e, E.Alias):
+        e = e.expr
+    if not isinstance(e, E.Column):
+        return
+    name = e.cname
+    node = s.input
+    while name is not None:
+        if isinstance(node, (P.CompactExec, AliasExec)):
+            node = node.input
+            continue
+        if isinstance(node, P.ProjectionExec):
+            mapped = None
+            for f, pe in zip(node.schema.fields, node.exprs):
+                if f.name != name:
+                    continue
+                base = pe.expr if isinstance(pe, E.Alias) else pe
+                mapped = base.cname if isinstance(base, E.Column) else None
+                break
+            name = mapped
+            node = node.input
+            continue
+        break
+    if name is None or not isinstance(node, P.ScanExec):
+        return
+    if name not in {f.name for f in node.schema.fields}:
+        return
+    node._topk_hint = (name, int(s.fetch), not s.specs[0].asc)
 
 
 def _maybe_compact(p: P.PhysicalPlan) -> P.PhysicalPlan:

@@ -68,3 +68,6 @@ class ExecContext:
         if name not in self.metrics:
             self.metrics[name] = ExecMetrics()
         return self.metrics[name]
+
+    def opt(self, key: str, default=None):
+        return self.config.get(key, default)

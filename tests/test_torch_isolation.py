@@ -27,7 +27,9 @@ VERBATIM = [
     "models/tpcds/datagen.py", "models/tpcds/sqlite_oracle.py",
     "sql/unparser.py", "models/clickbench/__init__.py",
     "models/clickbench/datagen.py", "models/clickbench/queries.py",
-    "testing/__init__.py", "testing/slt.py",
+    "testing/__init__.py", "testing/slt.py", "io/__init__.py",
+    "io/object_store.py", "runtime/cache.py", "io/pageindex.py", "io/bloom.py",
+    "io/parquet.py", "io/avro.py",
 ]
 # copied byte for byte, without a header
 VERBATIM_DATA = sorted(str(p.relative_to(ROOT / "datafusion_tpu"))
@@ -91,3 +93,31 @@ def test_session_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert ctx.device == torch.device("cpu")
     ctx.register_table("t", {"k": [1, 2]})
     assert ctx.catalog.get("t").scan_device(ctx.exec_context()).device == torch.device("cpu")
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu():
+    """`python -m datafusion_tpu_torch.cli -c ...` raises without a card,
+    runs with --cpu, and never imports jax."""
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "from datafusion_tpu_torch import cli\n"
+            "try:\n"
+            "    cli.main(['-c', 'SELECT 1 AS x'])\n"
+            "    print('NO-RAISE')\n"
+            "except RuntimeError as e:\n"
+            "    print('RAISED', 'CUDA' in str(e))\n"
+            "assert cli.main(['--cpu', '-c', 'SELECT 1 AS x']) == 0\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'datafusion_tpu' or m.startswith('datafusion_tpu.'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[:3] == ["RAISED True", " x", " 1"], out.stdout
+    assert lines[3].startswith("1 row(s)"), out.stdout
+    if not torch.cuda.is_available():
+        run = subprocess.run([sys.executable, "-m", "datafusion_tpu_torch.cli", "-c",
+                              "SELECT 1"], cwd=ROOT, capture_output=True, text=True,
+                             timeout=120)
+        assert run.returncode != 0 and "CUDA" in run.stderr

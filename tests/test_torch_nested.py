@@ -24,7 +24,6 @@ The `cuda`-marked tests capture N1, N3 and N6 on the card under
 torch.cuda.set_sync_debug_mode("error")."""
 import math
 import pathlib
-import re
 
 import jax
 import jax.numpy as jnp
@@ -519,9 +518,6 @@ GOLDEN_HELD = ["array__array_has.slt", "array__array_element.slt",
                "array__array_union.slt", "array__string_to_array.slt"]
 RECORDS = {name: port_slt.parse_slt((SLT / name).read_text())
            for name in JAX_HELD + GOLDEN_HELD}
-# file tables (CREATE EXTERNAL TABLE; ROADMAP queue 1, items 12 and 13) are
-# not ported: those records must raise NotImplementedError naming the item
-_EXTERNAL = re.compile(r"^\s*create\s+external\s+table", re.I)
 JAX_CASES = [(n, i) for n in JAX_HELD for i in range(len(RECORDS[n]))]
 GOLDEN_CASES = [(n, i) for n in GOLDEN_HELD for i, r in enumerate(RECORDS[n])
                 if r.kind == "query"]
@@ -556,10 +552,6 @@ def slt_outcomes():
 def test_slt_record_matches_jax(slt_outcomes, name, i):
     rec = RECORDS[name][i]
     port, ref = slt_outcomes
-    if _EXTERNAL.match(rec.sql):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PortSession(device="cpu").sql(rec.sql)
-        return
     assert port[name][i] == ref[name][i], f"{name}:{rec.line} {rec.sql}"
 
 

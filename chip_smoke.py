@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--sf 1] [--h2o-rows 10000000] [--tpcds-sf 24]
                           [--clickbench-rows 10000000] [--repeat 3]
+                          [--only outofcore]
 
 Run from the repository root on a machine with one CUDA card and nvcc. In
 order, it:
@@ -125,10 +126,34 @@ order, it:
      Parquet files and must print its four groups. Last, the phase's
      sessions (which sit in reference cycles) are collected, so that their
      scans leave the card;
- 14. prints a {"kernels": [...]} line, the card's name and power limit, and,
+ 14. out-of-core execution, run by 13 over its Parquet files before they
+     go (run_outofcore): fresh sessions with a 256 MiB budget
+     (execution.memory_limit_bytes) and 2^20-row chunks run TPC-H Q1, Q3,
+     Q4, Q5, Q6, Q10, Q12, Q13, Q18 and Q19 chunked from memory and from
+     Parquet, each against the pandas oracle, with its planning and
+     collect() timed apart, its peak allocation, chunks, spills and
+     launches, and the bytes allocated on the card as each scan chunk
+     arrives; chunked Q1 and Q6 must launch the kernel once per chunk
+     (their host syncs per chunk printed), every chunk call of Q1 is held
+     bit for bit against the plain version and the kernel timed at the
+     chunk's shape as in 5; chunked Q1's and Q18's peaks must stay below
+     the same queries' resident ones (a new resident session), every
+     query's peak must stay below the budget plus one chunk (the step in
+     which it was reached is printed), and chunked Q1 must hold no earlier
+     chunk when the next one arrives; `auto`
+     must take the chunked route and `off` raise ResourceExhausted; an
+     ORDER BY of lineitem must take the external sort and equal numpy's
+     lexsort; orders x lineitem under 8 MiB must take the grace join
+     (spied) and equal the resident answer; a LIMIT over an endless
+     stream must pull only the batches it needs, and execute_stream's
+     tables together must equal collect();
+ 15. prints a {"kernels": [...]} line, the card's name and power limit, and,
      last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line is printed.
-Without a CUDA device it exits with code 2 at once.
+Without a CUDA device it exits with code 2 at once. With `--only outofcore`
+it runs 2 (the build), then 14 alone over TPC-H at --sf, with the oracle's
+answers and the Parquet files made as the full run has them, and ends with
+a {"only": ...} line instead of 15: a quicker run for work on that phase.
 """
 from __future__ import annotations
 
@@ -2127,15 +2152,17 @@ def files_query(mem, fctx, label: str, sql: str, same, repeat: int,
 
 
 def run_files(mem, tables: dict, refs: dict, sf: float, repeat: int, card: str,
-              step_done=None) -> int:
+              step_done=None, outofcore=None) -> int:
     """The files phase, in a temporary directory removed at the end: TPC-H
     from Parquet (all 22 queries against the oracle), Q1 and Q6 from a
     pipe-delimited `.tbl` with a declared column list, pruning on a copy of
     lineitem sorted by l_shipdate (statistics, bloom filter, TopK), the
     statement cases on the card against the CPU, and the CLI over a SQL
     file. `mem` is the in-memory session of the same tables; `step_done(name)`,
-    where given, is called after each step. Returns the dense kernel's
-    launches in the queries' discovery runs."""
+    where given, is called after each step; `outofcore(locs)`, where given,
+    runs right after the Parquet queries, over the same files, and returns
+    its kernel launches. Returns the dense kernel's launches in the queries'
+    discovery runs (and outofcore's)."""
     import contextlib
     import io
     import shutil
@@ -2183,6 +2210,9 @@ def run_files(mem, tables: dict, refs: dict, sf: float, repeat: int, card: str,
               "memory_reserved": torch.cuda.memory_reserved(), "card": card})
         del fctx
         step_done("parquet_queries")
+        if outofcore is not None:
+            launches += outofcore(locs)
+            step_done("outofcore")
 
         # 2. Q1 and Q6 from pipe-delimited .tbl text
         tbl = os.path.join(tmp, "lineitem.tbl")
@@ -2305,6 +2335,443 @@ def run_files(mem, tables: dict, refs: dict, sf: float, repeat: int, card: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 14. out-of-core execution
+# ---------------------------------------------------------------------------
+
+OOC_QUERIES = (1, 3, 4, 5, 6, 10, 12, 13, 18, 19)
+# the session's budget and chunk: lineitem's 5,998,378 rows make 6 chunks
+OOC_LIMIT = 256 << 20
+OOC_CHUNK_ROWS = 1 << 20
+# queries whose chunked peak allocation must stay below their resident one
+OOC_PEAK_QUERIES = (1, 18)
+# the grace join's budget: below its build side's device bytes
+OOC_GRACE_LIMIT = 8 << 20
+OOC_GRACE_SQL = ("SELECT o_orderpriority, count(*) AS n, sum(l_quantity) AS q "
+                 "FROM orders JOIN lineitem ON o_orderkey = l_orderkey "
+                 "GROUP BY o_orderpriority ORDER BY o_orderpriority")
+OOC_SORT_SQL = ("SELECT l_orderkey, l_linenumber, l_shipdate, l_quantity FROM "
+                "lineitem ORDER BY l_shipdate DESC, l_orderkey, l_linenumber")
+OOC_STREAM_BATCH = 1 << 16
+
+
+def ooc_session(mode: str, tables=None, locs=None, limit: int = OOC_LIMIT):
+    """A new session (nothing of the earlier phases on the card) with the
+    phase's budget and chunk, over the in-memory tables or the Parquet
+    files at `locs`."""
+    from datafusion_tpu_torch.models.tpch import files as TF
+
+    cfg = {"execution.out_of_core": mode, "execution.chunk_rows": OOC_CHUNK_ROWS}
+    if limit:
+        cfg["execution.memory_limit_bytes"] = limit
+    ctx = SessionContext(config=cfg)
+    if locs is not None:
+        for name, loc in locs.items():
+            ctx.sql(TF.external_table_sql(name, loc))
+    else:
+        for name, table in tables.items():
+            ctx.register_table(name, table)
+    return ctx
+
+
+def measured(step):
+    """(step()'s result, wall ms, peak bytes allocated on the card above
+    what was allocated when it began)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, torch.cuda.max_memory_allocated() - base
+
+
+class CheckKernelCalls:
+    """While active, holds every dense_groupby_sums call the engine makes
+    against the plain version on the same inputs, bit for bit, as it
+    happens (so no chunk's tensors outlive it), and keeps the first call's
+    inputs for timing."""
+
+    def __enter__(self):
+        self.calls, self.first = 0, None
+        self._orig = DA.dense_groupby_sums
+
+        def checking(seg, mask, pairs, G):
+            got = self._orig(seg, mask, pairs, G)
+            want = DA.dense_groupby_sums_plain(seg, mask, pairs, G)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"chunk call {self.calls} (G={G}, n={seg.shape[0]}): the "
+                  f"kernel differs from the plain version")
+            if self.first is None:
+                self.first = (seg, mask, list(pairs), G)
+            self.calls += 1
+            return got
+
+        DA.dense_groupby_sums = checking
+        return self
+
+    def __exit__(self, *exc):
+        DA.dense_groupby_sums = self._orig
+
+
+class ChunkArrivals:
+    """While active, records the bytes allocated on the card (above what
+    was allocated when it began) each time a table's scan chunk arrives,
+    that chunk included: what the chunked executor still holds of earlier
+    chunks shows as growth from one arrival to the next."""
+
+    def __enter__(self):
+        from datafusion_tpu_torch.catalog import catalog as C
+
+        gc.collect()
+        self.base = torch.cuda.memory_allocated()
+        self.held = []
+        self._orig = {cls: cls.__dict__["scan_chunks"]
+                      for cls in (C.TableProvider, C.ParquetTable)}
+
+        def note(rel):
+            self.held.append(torch.cuda.memory_allocated() - self.base)
+            return rel
+
+        for cls, orig in self._orig.items():
+            # map() holds no chunk while it pulls the next, as the
+            # executor's stages do not
+            def scan_chunks(prov, *a, _orig=orig, **kw):
+                yield from map(note, _orig(prov, *a, **kw))
+
+            cls.scan_chunks = scan_chunks
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self._orig.items():
+            cls.scan_chunks = orig
+
+
+class PeakWhere:
+    """While active, names the chunked executor's step in which the card's
+    peak allocation was reached: each wrapped step compares
+    max_memory_allocated() at its entry and exit (host reads, no sync), and
+    the innermost step whose exit first sees a new maximum claims it.
+    `where` is that step for the last maximum, `held_at_entry` the bytes
+    allocated (above the start) when it began."""
+
+    def _steps(self):
+        from datafusion_tpu_torch.physical import chunked as CQ
+        from datafusion_tpu_torch.physical import plan as P
+
+        return [(CQ.SpillableAccumulator, n) for n in ("add", "_merge_held", "fold")] \
+            + [(CQ.ChunkedQuery, n) for n in ("_dense_partial", "_sorted_partial",
+                                              "_compact", "_partition_to_host")] \
+            + [(P.JoinExec, "execute_rels"), (P.AggregateExec, "execute_rel"),
+               (P.SortExec, "_transform_full"), (P.FilterExec, "_transform"),
+               (P.ProjectionExec, "_transform"), (P.DistinctExec, "_transform")]
+
+    def __enter__(self):
+        gc.collect()
+        self.base = torch.cuda.memory_allocated()
+        self.where, self.held_at_entry, self._claimed = None, None, 0
+        self._orig = []
+        for owner, name in self._steps():
+            raw = inspect.getattr_static(owner, name)
+            fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+            label = f"{owner.__name__}.{name}"
+
+            def wrapped(*a, _fn=fn, _label=label, **kw):
+                entry = torch.cuda.memory_allocated()
+                before = torch.cuda.max_memory_allocated()
+                out = _fn(*a, **kw)
+                top = torch.cuda.max_memory_allocated()
+                if top > before and top > self._claimed:
+                    self._claimed = top
+                    self.where, self.held_at_entry = _label, entry - self.base
+                return out
+
+            setattr(owner, name, staticmethod(wrapped)
+                    if isinstance(raw, staticmethod) else wrapped)
+            self._orig.append((owner, name, raw))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, raw in self._orig:
+            setattr(owner, name, raw)
+        if torch.cuda.max_memory_allocated() > self._claimed:
+            # reached while no wrapped step ran: a scan chunk's upload
+            self.where, self.held_at_entry = "scan_chunks", None
+
+
+def ooc_query(ctx, label: str, sql: str, same, card: str):
+    """One chunked collect() of a new DataFrame, planned first (`plan_ms`),
+    then timed (`wall_ms`) and its peak allocation read, launch counts reset
+    just before it and read just after, the bytes held at each chunk's
+    arrival recorded; the answer (a host Table) checked by same()."""
+    df = ctx.sql(sql)
+    t0 = time.perf_counter()
+    df.physical_plan()  # planned apart: a new session computes its statistics
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    DA.reset_launches()
+    with ChunkArrivals() as arrivals, PeakWhere() as where:
+        got, ms, peak = measured(df.collect)
+    launches = DA.launches
+    cq = getattr(df, "_cq", None)
+    check(cq is not None, f"{label}: the query did not take the chunked route")
+    same(got)
+    return df, {"ooc_query": label, "rows": got.num_rows, "plan_ms": plan_ms,
+                "wall_ms": ms,
+                "peak_allocated": peak, "limit": OOC_LIMIT,
+                "peak_over_limit_plus_chunk": peak / (OOC_LIMIT + cq.chunk_bytes),
+                "held_at_chunk_arrival": arrivals.held,
+                "peak_reached_in": where.where,
+                "held_at_its_entry": where.held_at_entry,
+                "chunks": cq.chunks, "chunk_bytes": cq.chunk_bytes,
+                "spills": cq.spill_count, "offloads": cq.offloads,
+                "grace_partitions": cq.grace_partitions,
+                "agg_splits": cq.agg_splits,
+                "kernel_launches": launches, "card": card}
+
+
+def run_outofcore(mem, tables: dict, refs: dict, sf: float, card: str,
+                  locs: dict, timing) -> int:
+    """The out-of-core phase: fresh sessions with a 256 MiB budget and
+    2^20-row chunks over TPC-H; `mem` is the resident session of the same
+    tables, `locs` the Parquet files of the files phase, `timing` (shapes,
+    iters, flush, baseline) for timing the kernel at the chunk's shape.
+    Returns the dense kernel's launches in the measured runs."""
+    from datafusion_tpu_torch.common.errors import ResourceExhausted
+    from datafusion_tpu_torch.data.device import table_from_numpy
+    from datafusion_tpu_torch.physical import chunked as CQ
+
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def oracle(qid):
+        def same(got):
+            diff = frames_diff(got.to_pandas(), refs[qid],
+                               ordered=qid in LIMIT_QUERIES)
+            check(diff is None, f"chunked Q{qid} differs from the pandas oracle: {diff}")
+        return same
+
+    # 1. the ten queries, chunked from memory and from Parquet
+    rows = {}
+    for source in ("memory", "parquet"):
+        ctx = ooc_session("on", tables=tables if source == "memory" else None,
+                          locs=locs if source == "parquet" else None)
+        for qid in OOC_QUERIES:
+            df, row = ooc_query(ctx, f"{source}_q{qid}", query(qid, sf), oracle(qid),
+                                card)
+            launches += row["kernel_launches"]
+            if qid in (1, 6):
+                check(row["kernel_launches"] == row["chunks"] > 1,
+                      f"chunked {source} Q{qid}: {row['kernel_launches']} kernel "
+                      f"launches for {row['chunks']} chunks")
+                syncs = host_syncs(df.collect)
+                row["host_syncs"] = syncs
+                row["host_syncs_per_chunk"] = syncs / row["chunks"]
+            rows[(source, qid)] = row
+            emit(row)
+        del ctx, df
+    gc.collect()
+
+    # 2. every chunk call of Q1 bit for bit; the kernel timed at its shape
+    ctx = ooc_session("on", tables=tables)
+    with CheckKernelCalls() as kc:
+        ctx.sql(query(1, sf)).collect()
+    check(kc.calls == rows[("memory", 1)]["chunks"],
+          f"chunked Q1 checked {kc.calls} kernel calls")
+    shapes, iters, flush, baseline = timing
+    t = kernel_timing(kc.first, iters, flush, baseline)
+    t["launches_per_query"] = kc.calls
+    shapes["ooc_q1_chunk"] = t
+    emit({"kernel_timing": KERNEL["name"], "shape": "ooc_q1_chunk", **t})
+    del kc, ctx
+    gc.collect()
+
+    # 3. peak allocation and wall time, chunked against resident
+    for qid in OOC_PEAK_QUERIES:
+        res = SessionContext()
+        for name, table in tables.items():
+            res.register_table(name, table)
+        got, ms, peak = measured(lambda: res.sql(query(qid, sf)).collect())
+        oracle(qid)(got)
+        chunked = rows[("memory", qid)]
+        emit({"ooc_peak": f"q{qid}", "chunked_peak_allocated": chunked["peak_allocated"],
+              "resident_peak_allocated": peak, "chunked_wall_ms": chunked["wall_ms"],
+              "resident_first_collect_ms": ms, "limit": OOC_LIMIT,
+              "chunk_bytes": chunked["chunk_bytes"], "chunks": chunked["chunks"],
+              "card": card})
+        check(chunked["peak_allocated"] < peak,
+              f"chunked Q{qid} peaked at {chunked['peak_allocated']} bytes, "
+              f"resident at {peak}")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 4. the route: `auto` streams Q1 under the budget, `off` raises
+    ctx = ooc_session("auto", tables=tables)
+    df, row = ooc_query(ctx, "auto_q1", query(1, sf), oracle(1), card)
+    launches += row["kernel_launches"]
+    emit(row)
+    ctx = ooc_session("off", tables=tables)
+    try:
+        ctx.sql(query(1, sf)).collect()
+        raised = None
+    except ResourceExhausted as e:
+        raised = str(e)
+    check(raised is not None, "Q1 under the budget with out_of_core=off did not "
+                              "raise ResourceExhausted")
+    emit({"ooc_route": "off_q1", "raised": "ResourceExhausted",
+          "message": raised[:200], "card": card})
+    del ctx, df
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the external sort: sorted runs to the host, one merge there
+    ctx = ooc_session("on", tables=tables)
+    li = tables["lineitem"]
+    cols = {n: np.asarray(li.column(n).data) for n in
+            ("l_orderkey", "l_linenumber", "l_shipdate", "l_quantity")}
+    want = np.lexsort((cols["l_linenumber"], cols["l_orderkey"],
+                       -cols["l_shipdate"].astype(np.int64)))
+
+    def sorted_same(got):
+        for n, c in cols.items():
+            check(np.array_equal(np.asarray(got.column(n).data), c[want]),
+                  f"external sort: column {n} differs from numpy's lexsort")
+
+    df, row = ooc_query(ctx, "external_sort", OOC_SORT_SQL, sorted_same, card)
+    check(row["offloads"] >= 1 and row["offloads"] == row["chunks"],
+          f"external sort: {row['offloads']} runs moved to the host for "
+          f"{row['chunks']} chunks")
+    emit(row)
+    del ctx, df
+    gc.collect()
+
+    # 6. the grace join: a build side over the budget
+    graces = []
+    orig = CQ.ChunkedQuery._grace_join
+
+    def spy(self, *a, **kw):
+        graces.append(1)
+        return orig(self, *a, **kw)
+
+    CQ.ChunkedQuery._grace_join = spy
+    try:
+        ctx = ooc_session("on", tables=tables, limit=OOC_GRACE_LIMIT)
+        resident = mem.sql(OOC_GRACE_SQL).to_pandas()
+
+        def grace_same(got):
+            diff = frames_diff(got.to_pandas(), resident, ordered=True)
+            check(diff is None, f"the grace join differs from the resident "
+                                f"answer: {diff}")
+
+        df, row = ooc_query(ctx, "grace_join", OOC_GRACE_SQL, grace_same, card)
+    finally:
+        CQ.ChunkedQuery._grace_join = orig
+    check(bool(graces) and row["grace_partitions"] > 0,
+          f"orders x lineitem under {OOC_GRACE_LIMIT} bytes took no grace join")
+    row["limit"] = OOC_GRACE_LIMIT
+    row["peak_over_limit_plus_chunk"] = row["peak_allocated"] / (
+        OOC_GRACE_LIMIT + row["chunk_bytes"])
+    launches += row["kernel_launches"]
+    emit(row)
+    del ctx, df
+    gc.collect()
+
+    # 7. streams: LIMIT over endless batches stops early; execute_stream
+    pulled = []
+
+    def endless():
+        for i in itertools.count():
+            pulled.append(i)
+            k = np.arange(i * OOC_STREAM_BATCH, (i + 1) * OOC_STREAM_BATCH,
+                          dtype=np.int64)
+            yield table_from_numpy([("k", T.INT64), ("v", T.INT64)], [k, k % 97])
+
+    ctx = SessionContext()
+    ctx.register_streaming_table("s", endless, {"k": T.INT64, "v": T.INT64},
+                                 unbounded=True)
+    got, ms, _ = measured(
+        lambda: ctx.sql("SELECT k FROM s WHERE k % 1000 = 7 LIMIT 50").to_pydict())
+    check(got == {"k": [1000 * i + 7 for i in range(50)]},
+          f"the stream's LIMIT answered {got}")
+    need = -(-(1000 * 49 + 8) // OOC_STREAM_BATCH)  # batches up to the 50th row
+    check(len(pulled) == need, f"the stream's LIMIT pulled {len(pulled)} batches "
+                               f"for the {need} it needs")
+    ctx = ooc_session("on", tables=tables)
+    df = ctx.sql("SELECT l_orderkey, l_linenumber FROM lineitem WHERE l_quantity < 5")
+    parts = list(df.execute_stream())
+    whole = mem.sql("SELECT l_orderkey, l_linenumber FROM lineitem "
+                    "WHERE l_quantity < 5").collect()
+
+    def keyed(ok, ln):
+        ok, ln = np.asarray(ok), np.asarray(ln)
+        o = np.lexsort((ln, ok))
+        return ok[o], ln[o]
+
+    streamed = keyed(np.concatenate([t.column("l_orderkey").data for t in parts]),
+                     np.concatenate([t.column("l_linenumber").data for t in parts]))
+    full = keyed(whole.column("l_orderkey").data, whole.column("l_linenumber").data)
+    check(len(parts) > 1 and all(np.array_equal(a, b) for a, b in zip(streamed, full)),
+          f"execute_stream's {len(parts)} tables differ from collect()")
+    emit({"ooc_stream": "limit_over_endless_batches", "batches_pulled": len(pulled),
+          "wall_ms": ms, "execute_stream_tables": len(parts),
+          "execute_stream_rows": int(sum(t.num_rows for t in parts)), "card": card})
+    del ctx, df, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the budget bounds the card (checked last, so that a failure here
+    # still shows every other step): every query's peak within the budget
+    # plus one chunk, and no earlier chunk held when Q1's next one arrives
+    for (source, qid), row in rows.items():
+        check(row["peak_allocated"] <= OOC_LIMIT + row["chunk_bytes"],
+              f"chunked {source} Q{qid} peaked at {row['peak_allocated']} bytes, "
+              f"above the budget {OOC_LIMIT} plus a chunk of {row['chunk_bytes']}")
+    q1 = rows[("memory", 1)]
+    check(max(q1["held_at_chunk_arrival"]) < 2 * q1["chunk_bytes"],
+          f"chunked Q1 held {q1['held_at_chunk_arrival']} bytes as its chunks "
+          f"of {q1['chunk_bytes']} arrived: an earlier chunk stays on the card")
+    emit({"phase": "outofcore", "s": time.perf_counter() - t_phase,
+          "memory_reserved": torch.cuda.memory_reserved(), "card": card})
+    return launches
+
+
+def run_outofcore_only(args) -> int:
+    """`--only outofcore`: the kernels built, TPC-H at --sf in a resident
+    session, the oracle's answers to the phase's queries and the tables as
+    Parquet in a temporary directory (as the full run has them when phase
+    14 starts), then run_outofcore."""
+    import shutil
+    import tempfile
+
+    from datafusion_tpu_torch.models.tpch import files as TF
+
+    t0 = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    cuda_build.build_all([DA.SOURCE, BASELINE])
+    baseline = baseline_call(cuda_build.load(BASELINE))
+    tables = generate_tpch(args.sf, cache=False)
+    mem = SessionContext()
+    for name, table in tables.items():
+        mem.register_table(name, table)
+    frames = oracle_tables(tables)
+    refs = {q: ref_query(q, frames, args.sf) for q in OOC_QUERIES}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_outofcore_")
+    try:
+        locs = TF.write_tpch_parquet(tables, tmp, lineitem_files=8)
+        emit({"setup_s": time.perf_counter() - t0})
+        launches = run_outofcore(
+            mem, tables, refs, args.sf, card, locs,
+            ({}, args.iters, L2Flush(torch.device("cuda")), baseline))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"only": "outofcore", "launches": launches,
+          "total_s": time.perf_counter() - t0})
+    return 0
+
+
 def generate_table(kind: str, rows: int):
     """(the h2o groupby table or the ClickBench hits table of `rows` rows,
     the seconds it took), in a worker process."""
@@ -2330,11 +2797,15 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per kernel timing, each after an "
                          "L2 flush (the median is reported)")
+    ap.add_argument("--only", choices=("outofcore",),
+                    help="run the kernels' build and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this smoke test runs only on the card", file=sys.stderr)
         return 2
+    if args.only == "outofcore":
+        return run_outofcore_only(args)
     # the h2o and ClickBench tables take minutes of host time to generate:
     # two worker processes make them while the earlier phases run
     workers = multiprocessing.get_context("spawn").Pool(2)
@@ -2470,8 +2941,10 @@ def run(args, generated: dict) -> int:
                                min(args.repeat, CLICKBENCH_REPEAT),
                                shapes, seen, args.iters, flush, baseline)
     emit({"elapsed_s": time.perf_counter() - t_run, "after": "clickbench"})
-    launches += run_files(ctx, tables, refs, args.sf,
-                          min(args.repeat, FILES_REPEAT), card)
+    launches += run_files(
+        ctx, tables, refs, args.sf, min(args.repeat, FILES_REPEAT), card,
+        outofcore=lambda locs: run_outofcore(ctx, tables, refs, args.sf, card, locs,
+                                             (shapes, args.iters, flush, baseline)))
     emit({"elapsed_s": time.perf_counter() - t_run, "after": "files"})
 
     q1 = shapes["q1"]

@@ -6,11 +6,13 @@ catalog-listing/src/table.rs). A MemTable caches the torch encoding of the
 columns it has been asked for, per device, so repeated queries find their
 columns resident on the card. The file providers (Parquet, CSV, JSON, Arrow
 IPC, Avro) read through the copied io/ layer and cache the uploaded relation
-per device (and, for Parquet, per pruned scan). Not ported yet: the
-out-of-core scans (`scan_chunks`, ParquetTable's `_shared_dictionary` and
-`_chunk_bounds`, StreamingTable; ROADMAP queue 1, item 10) and the
-recursive-CTE work table, which raises NotImplementedError when the planner
-builds one (item 12)."""
+per device (and, for Parquet, per pruned scan). Out-of-core scans
+(`scan_chunks`) upload one capacity-bounded chunk at a time and go through
+neither cache: a chunked query holds one chunk of a table on the card, not
+the table. A StreamingTable is a (possibly unbounded) stream of batches.
+Not ported yet: the recursive-CTE work table, which raises
+NotImplementedError when the planner builds one (ROADMAP queue 1, item
+12)."""
 from __future__ import annotations
 
 import os
@@ -86,6 +88,103 @@ class TableProvider:
             uniq = False
         cache[cols] = uniq
         return uniq
+
+    # every chunk of scan_chunks carries one dictionary per string column
+    # and one bounds tuple per column (a StreamingTable's do not)
+    shared_chunk_metadata = True
+
+    def scan_chunks(self, ctx, filters=(), projection=None, chunk_rows=1 << 20):
+        """Capacity-bounded device chunks of this table, uploaded one at a
+        time from slices of the host table (reference analog: partitioned
+        FileStream batches). Every chunk shares ONE capacity, one dictionary
+        per string column and one bounds tuple per column, so the per-chunk
+        operators see the same static metadata in every chunk. The device
+        caches of scan_device are not touched."""
+        from ..data.device import bucket_capacity, table_bounds
+
+        t = _project(self.host_table(), projection)
+        bounds = table_bounds(t)
+        cap = bucket_capacity(min(max(chunk_rows, 1), max(t.num_rows, 1)))
+        device = resolve_device(ctx.device if ctx is not None else None)
+        if t.num_rows == 0:
+            yield to_device(t, capacity=cap, device=device, bounds=bounds)
+            return
+        for start in range(0, t.num_rows, cap):
+            yield to_device(t, capacity=cap, device=device,
+                            row_range=(start, min(start + cap, t.num_rows)),
+                            bounds=bounds)
+
+
+def _project(t: Table, projection) -> Table:
+    """The table's columns named in `projection` (all of them for None; the
+    first one for an empty projection, whose scan still needs its rows)."""
+    if projection is None:
+        return t
+    idxs = [t.schema.index_of(c) for c in projection] or [0][:len(t.columns)]
+    return Table(Schema([t.schema.fields[i] for i in idxs]),
+                 [t.columns[i] for i in idxs])
+
+
+class StreamingTable(TableProvider):
+    """A (possibly unbounded) stream of record batches (reference:
+    StreamingTableExec, physical-plan/src/streaming.rs:63). `batches` is a
+    zero-argument factory returning an iterator of host Tables or pydicts;
+    each call starts a fresh scan. Queries over an unbounded stream run
+    through the chunked executor, which pulls batches as it needs them and
+    stops early under a LIMIT; a pipeline breaker over an unbounded stream
+    is rejected at plan time (physical/chunked.plan_boundedness). Each
+    batch uploads with its own dictionaries and bounds (a stream cannot be
+    read ahead for shared ones), so the chunked executor makes no decision
+    for all chunks from one of them."""
+
+    shared_chunk_metadata = False
+
+    def __init__(self, schema: Schema, batches, unbounded: bool = False):
+        self._schema = schema
+        self._batches = batches
+        self.unbounded = unbounded
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def is_unique(self, cols: tuple) -> bool:
+        return False  # a stream cannot be scanned at plan time
+
+    def statistics(self):
+        from ..common.stats import Statistics
+
+        return Statistics(float("inf") if self.unbounded else 0.0)
+
+    def host_table(self) -> Table:
+        if self.unbounded:
+            raise PlanError("cannot materialize an unbounded stream")
+        from ..physical.chunked import concat_host
+
+        return concat_host([self._coerce(b) for b in self._batches()],
+                           self._schema)
+
+    def _coerce(self, b) -> Table:
+        if isinstance(b, Table):
+            return b
+        return Table.from_pydict(b, {f.name: f.dtype for f in self._schema.fields})
+
+    def scan_device(self, ctx, filters=(), projection=None) -> DeviceRelation:
+        return to_device(self.host_table(),
+                         device=resolve_device(ctx.device if ctx is not None
+                                               else None))
+
+    def scan_chunks(self, ctx, filters=(), projection=None, chunk_rows=1 << 20):
+        from ..data.device import bucket_capacity
+
+        cap = None
+        device = resolve_device(ctx.device if ctx is not None else None)
+        for b in self._batches():
+            t = _project(self._coerce(b), projection)
+            if cap is None:
+                cap = bucket_capacity(min(max(t.num_rows, 1), chunk_rows))
+            for start in range(0, max(t.num_rows, 1), cap):
+                yield to_device(t, capacity=cap, device=device,
+                                row_range=(start, min(start + cap, t.num_rows)))
 
 
 class WorkTable(TableProvider):
@@ -192,6 +291,7 @@ class ParquetTable(TableProvider):
         self._schema: Optional[Schema] = None
         self._table: Optional[Table] = None
         self._device: "OrderedDict[tuple, DeviceRelation]" = OrderedDict()
+        self._chunk_dicts: Dict[str, object] = {}
 
     @property
     def last_scan(self) -> Dict:
@@ -266,6 +366,103 @@ class ParquetTable(TableProvider):
         while len(self._device) > PARQUET_DEVICE_SCANS:
             self._device.popitem(last=False)
         return rel
+
+    def _shared_dictionary(self, name: str):
+        """One interned Dictionary per string column for chunked scans (see
+        ParquetDataset.global_dictionary): every chunk's codes index it."""
+        if name not in self._chunk_dicts:
+            import numpy as np
+
+            from ..data.column import Dictionary
+
+            if name in self._ds.partition_keys:
+                vals = np.array(sorted({str(f.partitions[name])
+                                        for f in self._ds.files
+                                        if f.partitions.get(name) is not None}),
+                                dtype=object)
+            else:
+                vals = self._ds.global_dictionary(name)
+            self._chunk_dicts[name] = None if vals is None else Dictionary(vals)
+        return self._chunk_dicts[name]
+
+    def _chunk_bounds(self, table: Table):
+        """Dataset-wide device-representation bounds per chunk column, from
+        footer statistics only, the same for every chunk."""
+        stats = self._ds.column_stats()
+        out = []
+        for f in table.schema.fields:
+            s = stats.get(f.name)
+            b = None
+            if s is not None and s.lo is not None and s.hi is not None:
+                try:
+                    if f.dtype.is_decimal:
+                        k = 10 ** f.dtype.scale
+                        b = (min(int(round(s.lo * k)), 0),
+                             max(int(round(s.hi * k)), 0))
+                    elif f.dtype.is_integer or f.dtype.is_temporal:
+                        b = (min(int(s.lo), 0), max(int(s.hi), 0))
+                except (TypeError, ValueError):
+                    b = None
+            out.append(b)
+        return out
+
+    def scan_chunks(self, ctx, filters=(), projection=None, chunk_rows=1 << 20):
+        """Out-of-core Parquet scan: batches of pruned row groups stream from
+        disk one at a time (the next batch is read on a worker thread while
+        this one runs, `execution.parquet_scan_ahead`); string columns are
+        re-encoded onto dataset-wide dictionaries and bounds come from footer
+        statistics, so every chunk carries the same static metadata. Nothing
+        is kept in the uploaded-scan cache."""
+        from ..data.device import bucket_capacity
+
+        batches = self._ds.chunk_units(list(filters), max(chunk_rows, 1))
+        cap = bucket_capacity(max(chunk_rows, 1))
+        device = resolve_device(ctx.device if ctx is not None else None)
+        if not batches:
+            at = self._ds.read(filters, projection)  # empty, schema-correct
+            yield to_device(Table.from_arrow(at), device=device)
+            return
+        threads = int(ctx.opt("execution.parquet_scan_threads", 8)) \
+            if ctx is not None else 8
+        ahead = bool(ctx.opt("execution.parquet_scan_ahead", True)) \
+            if ctx is not None else True
+
+        def fetch(units):
+            return Table.from_arrow(
+                self._ds.read_units(units, projection, threads=threads))
+
+        pool = pending = None
+        if ahead and len(batches) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(max_workers=1)
+            pending = pool.submit(fetch, batches[0])
+        bounds = None
+        try:
+            for bi, units in enumerate(batches):
+                if pending is not None:
+                    t = pending.result()
+                    pending = (pool.submit(fetch, batches[bi + 1])
+                               if bi + 1 < len(batches) else None)
+                else:
+                    t = fetch(units)
+                cols = []
+                for f, c in zip(t.schema.fields, t.columns):
+                    if f.dtype.is_string:
+                        shared = self._shared_dictionary(f.name)
+                        if shared is not None:
+                            c = c.remap_dictionary(shared)
+                    cols.append(c)
+                t = Table(t.schema, cols)
+                if bounds is None:
+                    bounds = self._chunk_bounds(t)
+                for start in range(0, t.num_rows, cap):
+                    yield to_device(t, capacity=cap, device=device,
+                                    row_range=(start, min(start + cap, t.num_rows)),
+                                    bounds=bounds)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False, cancel_futures=True)
 
 
 def _expand_files(path: str, exts) -> List[str]:

@@ -7,10 +7,14 @@ TABLE, CREATE VIEW, DROP TABLE, COPY ... TO, INSERT INTO, DELETE, UPDATE,
 SHOW, SET, PREPARE/EXECUTE/DEALLOCATE), collect results. Plans run on the
 session's device, which is the CUDA card unless the caller passes another
 (`SessionContext(device="cpu")`): operator by operator the first time a
-DataFrame is collected, then as a steady state (physical/fused.py). EXPLAIN
-ANALYZE, UDF registration, streaming execution, the DataFrame plan-building
-methods and the Substrait/protobuf interchange are not ported yet (ROADMAP
-queue 1, item 12 'Remaining surface')."""
+DataFrame is collected, then as a steady state (physical/fused.py). A
+session with a memory limit (`execution.memory_limit_bytes`) streams a query
+whose scans would not fit in it chunk by chunk instead
+(`execution.out_of_core`, physical/chunked.py), as it does every query over
+a streaming table (`register_streaming_table`); `DataFrame.execute_stream`
+yields a query's answer chunk by chunk. EXPLAIN ANALYZE, UDF registration,
+the DataFrame plan-building methods and the Substrait/protobuf interchange
+are not ported yet (ROADMAP queue 1, item 12 'Remaining surface')."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -73,6 +77,20 @@ class SessionContext:
                 self.catalog.register(name, MemTable(Table.from_pandas(data)))
             else:
                 raise PlanError(f"cannot register {type(data)}")
+
+    def register_streaming_table(self, name: str, batches, schema,
+                                 unbounded: bool = False) -> None:
+        """Register a stream of record batches (reference: StreamingTable /
+        StreamingTableExec, physical-plan/src/streaming.rs:63). `batches` is
+        a zero-argument callable returning an iterator of host Tables or
+        pydicts; `schema` is a Schema or {name: DataType}. Over an unbounded
+        stream only pipeline-friendly plans (filters, projections, limits,
+        INNER stream joins) run, incrementally."""
+        from .catalog.catalog import StreamingTable
+
+        if isinstance(schema, dict):
+            schema = Schema([Field(n, t) for n, t in schema.items()])
+        self.catalog.register(name, StreamingTable(schema, batches, unbounded))
 
     def register_parquet(self, name: str, path: str) -> None:
         self.catalog.register(name, ParquetTable(path))
@@ -440,8 +458,59 @@ class DataFrame:
         collect() of a DataFrame executes the plan operator by operator and
         discovers its capacities; the second builds the steady state (on a
         CUDA device, one captured CUDA graph) and every later one replays
-        it."""
-        return to_host(self._fused_query().execute(self._ctx.exec_context()))
+        it. A query that takes the out-of-core route (_chunked_query) runs
+        through the chunked executor instead (physical/chunked.py)."""
+        ctx = self._ctx.exec_context()
+        cq = self._chunked_query(ctx)
+        if cq is not None:
+            from .physical.chunked import plan_boundedness
+
+            if plan_boundedness(cq.plan):
+                raise PlanError("query output is an unbounded stream; use "
+                                "execute_stream() or add a LIMIT")
+            return cq.collect(ctx)
+        return to_host(self._fused_query().execute(ctx))
+
+    def execute_stream(self, chunk_rows: Optional[int] = None):
+        """Yield the answer as host Tables, chunk by chunk, through the
+        chunked executor (reference: DataFrame::execute_stream ->
+        SendableRecordBatchStream): the only way to consume a query whose
+        output is unbounded."""
+        from .physical.chunked import ChunkedQuery, plan_boundedness
+
+        ctx = self._ctx.exec_context()
+        cq = ChunkedQuery(self.physical_plan(), chunk_rows or _chunk_rows(ctx))
+        plan_boundedness(cq.plan)  # rejects breakers over unbounded inputs
+        for rel in cq._stream(cq.plan, ctx):
+            t = to_host(rel)
+            if t.num_rows:
+                yield t
+
+    def _chunked_query(self, ctx):
+        """The ChunkedQuery of this DataFrame when the out-of-core route
+        applies, else None: always over an unbounded stream; otherwise by
+        `execution.out_of_core` -- 'on', 'off', or 'auto', which takes it
+        when the pool is bounded and the scans' estimated device bytes pass
+        half of its limit."""
+        from .physical.chunked import (ChunkedQuery, estimate_scan_bytes,
+                                       plan_boundedness, scan_unbounded)
+
+        mode = str(ctx.opt("execution.out_of_core", "auto")).lower()
+        plan = self.physical_plan()
+        if scan_unbounded(plan):
+            plan_boundedness(plan)  # raises on breakers over the stream
+        elif mode in ("off", "false", "0", "none"):
+            return None
+        elif mode not in ("on", "true", "1"):
+            pool = ctx.memory_pool
+            if pool.headroom() is None or \
+                    estimate_scan_bytes(plan) <= pool.limit // 2:
+                return None
+        rows = _chunk_rows(ctx)
+        cq = getattr(self, "_cq", None)
+        if cq is None or cq.chunk_rows != ChunkedQuery(plan, rows).chunk_rows:
+            cq = self._cq = ChunkedQuery(plan, rows)
+        return cq
 
     def _fused_query(self):
         """One FusedQuery per DataFrame, over its cached physical plan."""
@@ -462,6 +531,10 @@ class DataFrame:
 
     def write_csv(self, path: str) -> None:
         self.collect().write_csv(path)
+
+
+def _chunk_rows(ctx) -> int:
+    return int(ctx.opt("execution.chunk_rows", 1 << 21) or (1 << 21))
 
 
 def _file_table(stmt) -> TableProvider:

@@ -12,7 +12,9 @@ ops:
 * the equi-join core: `canonical_ids_two_sided` (exact dense ids for
   composite keys across both sides), `pack_join_keys`, `join_match_counts`
   (build side sorted by id, probes located with `torch.searchsorted`) and
-  `join_expand` (output slot -> (probe row, build row)).
+  `join_expand` (output slot -> (probe row, build row));
+* `hash64` -- a 64-bit hash per row over several columns (the grace join's
+  partitioning, physical/chunked.py).
 
 Every sort is stable (`torch.sort(..., stable=True)`), as every reference
 sort is. Segment ids at or beyond the segment count are dropped, as
@@ -33,6 +35,51 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..data.device import is_integer
+
+# splitmix64 multipliers as int64 bit patterns (0xFF51AFD7ED558CCD,
+# 0xC4CEB9FE1A85EC53)
+_M1 = 0xFF51AFD7ED558CCD - (1 << 64)
+_M2 = 0xC4CEB9FE1A85EC53 - (1 << 64)
+_LOW31 = (1 << 31) - 1
+
+
+def _shr33(x: torch.Tensor) -> torch.Tensor:
+    """The logical right shift by 33 of int64 bit patterns (uint64 `>>`
+    raises on the CPU; the arithmetic shift's sign bits are masked off)."""
+    return (x >> 33) & _LOW31
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64-style finalizer over uint64 bit patterns held in int64
+    (multiplication and xor wrap the same in both)."""
+    x = x ^ _shr33(x)
+    x = x * _M1
+    x = x ^ _shr33(x)
+    x = x * _M2
+    x = x ^ _shr33(x)
+    return x
+
+
+def hash64(columns: Sequence[torch.Tensor], seed: int = 0) -> torch.Tensor:
+    """A 64-bit hash per row of several columns, as int64 bit patterns
+    equal to the reference's uint64 ones. Integer and bool columns hash
+    their values widened to 64 bits (negative values sign-extended), float64
+    columns their bits, float32 columns their 32 bits zero-extended."""
+    assert columns, "hash64 needs at least one column"
+    n = columns[0].shape[0]
+    dev = columns[0].device
+    seed64 = (int(seed) ^ (_M1 + (1 << 64))) & ((1 << 64) - 1)
+    acc = torch.full((n,), seed64 - (1 << 64) if seed64 >= 1 << 63 else seed64,
+                     dtype=torch.int64, device=dev)
+    for c in columns:
+        if c.dtype is torch.float64:
+            bits = c.view(torch.int64)
+        elif c.dtype is torch.float32:
+            bits = c.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        else:
+            bits = c.to(torch.int64)
+        acc = _mix64(acc ^ _mix64(bits))
+    return acc
 
 
 def _sortable(x: torch.Tensor) -> torch.Tensor:

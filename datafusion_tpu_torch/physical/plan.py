@@ -273,6 +273,11 @@ class SortExec(PhysicalPlan):
                 return rel
             rank = torch.cumsum(rel.sel, 0, dtype=torch.int64)
             return rel.with_sel(rel.sel & (rank <= self.fetch))
+        return self._transform_full(rel)
+
+    def _transform_full(self, rel: DeviceRelation) -> DeviceRelation:
+        """The sort itself, presorted or not: the chunked executor's inputs
+        arrive chunk after chunk and are never globally ordered."""
         keys = []
         for s in self.specs:
             c = eval_expr(s.expr, rel)
@@ -684,7 +689,12 @@ class AggregateExec(PhysicalPlan):
 
     def execute(self, ctx: ExecContext) -> DeviceRelation:
         self._check_ported()
-        rel = self.input.execute(ctx)
+        return self.execute_rel(ctx, self.input.execute(ctx))
+
+    def execute_rel(self, ctx: ExecContext, rel: DeviceRelation) -> DeviceRelation:
+        """Aggregate an already-computed input relation (execute(), and the
+        chunked executor's materialized fallback)."""
+        self._check_ported()
         if not self.group_exprs:
             if self._has_array_agg():
                 self._widen(int(rel.sel.sum()))  # one host read: the list width
@@ -824,12 +834,18 @@ class JoinExec(PhysicalPlan):
         return self._timed(ctx, self.execute_rels, lrel, rrel)
 
     def execute_rels(self, lrel: DeviceRelation, rrel: DeviceRelation,
-                     flags: Optional[list] = None) -> DeviceRelation:
+                     flags: Optional[list] = None,
+                     direct_bytes: Optional[int] = None) -> DeviceRelation:
         """Run the join over (probe, build) relations, probe = left after
         RIGHT-flavour mirroring. With `flags` (a steady state,
         physical/fused.py) no host read is made: the path and capacity
         discovered by earlier runs are applied, and a 0-d bool tensor that is
-        True when they no longer hold is appended to `flags`."""
+        True when they no longer hold is appended to `flags`.
+        `direct_bytes` caps the table of a direct-address path (the key
+        domain sizes it, not the inputs: a bool a slot for semi-direct, 20
+        bytes for minmax, 8 for direct); a path whose table would pass it
+        is not taken. The chunked executor, which bounds what sits on the
+        card by its budget, passes one."""
         jt = self.join_type
         swapped = self._swapped()
         if swapped:
@@ -845,14 +861,22 @@ class JoinExec(PhysicalPlan):
             keys = self._keys(on, lrel, rrel)
             if on:
                 info = J.direct_domain(keys[0], keys[1], self.DIRECT_DOMAIN_LIMIT)
+
+        def within(slot_bytes):
+            """info, when its table of slot_bytes a slot fits direct_bytes."""
+            if info is None or direct_bytes is None \
+                    or (info[1] + 1) * slot_bytes <= direct_bytes:
+                return info
+            return None
+
         semi = jt in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI)
         if semi and self.filter is None:
-            return self._run_semi(lrel, rrel, keys, rng, info, None)
-        if semi and info is not None:
+            return self._run_semi(lrel, rrel, keys, rng, within(1), None)
+        if semi and within(20) is not None:
             mm = self._residual_minmax(lrel, rrel)
             if mm is not None:
-                return self._run_semi(lrel, rrel, keys, rng, info, mm)
-        return self._run_expand(lrel, rrel, jt, swapped, keys, rng, info, flags)
+                return self._run_semi(lrel, rrel, keys, rng, within(20), mm)
+        return self._run_expand(lrel, rrel, jt, swapped, keys, rng, within(8), flags)
 
     @staticmethod
     def _keys(on, lrel, rrel):

@@ -2,8 +2,9 @@
 
 Port of datafusion_tpu/runtime/context.py (reference analog: TaskContext +
 RuntimeEnv, datafusion/execution/src/task.rs:52): per-query config, the
-torch device, metrics registry and memory accounting passed to every
-operator's execute()."""
+torch device, metrics registry, memory pool (`execution.memory_pool`:
+greedy or fair_spill) and spill manager passed to every operator's
+execute()."""
 from __future__ import annotations
 
 import contextlib
@@ -43,14 +44,28 @@ def planning_device(device):
 
 class ExecContext:
     def __init__(self, config: Optional[Dict[str, Any]] = None, device=None):
-        from .memory import GreedyMemoryPool, MemoryPool
+        from .memory import FairSpillPool, GreedyMemoryPool, MemoryPool
+        from .spill import SpillManager
 
         self.config = dict(config or {})
         self.device = device if device is not None else _PLANNING_DEVICE
         self.metrics: Dict[str, ExecMetrics] = {}
         limit = (self.config.get("memory_limit_bytes")
                  or self.config.get("execution.memory_limit_bytes"))
-        self.memory_pool = GreedyMemoryPool(int(limit)) if limit else MemoryPool()
+        kind = self.config.get("execution.memory_pool", "greedy")
+        if not limit:
+            self.memory_pool = MemoryPool()
+        elif kind == "fair_spill":
+            self.memory_pool = FairSpillPool(int(limit))
+        else:
+            self.memory_pool = GreedyMemoryPool(int(limit))
+        compress = self.config.get("execution.spill_compression", False)
+        self.spill_manager = SpillManager(
+            self.config.get("spill_dir")
+            or self.config.get("execution.spill_dir") or None,
+            max_host_bytes=self.config.get("execution.spill_max_host_bytes", 0),
+            compress=str(compress).lower() not in ("false", "0", "",
+                                                   "uncompressed", "none"))
         # cooperative cancellation, checked between operator dispatches
         self.cancel_event = self.config.get("_cancel_event")
         timeout = self.config.get("execution.timeout_seconds")

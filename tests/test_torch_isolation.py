@@ -121,3 +121,21 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu():
                               "SELECT 1"], cwd=ROOT, capture_output=True, text=True,
                              timeout=120)
         assert run.returncode != 0 and "CUDA" in run.stderr
+
+
+# the out-of-core slice: its modules, each imported alone in a fresh process
+OUT_OF_CORE = ["datafusion_tpu_torch.physical.chunked", "datafusion_tpu_torch.runtime.spill",
+               "datafusion_tpu_torch.runtime.memory", "datafusion_tpu_torch.parallel.aggsplit",
+               "datafusion_tpu_torch.catalog.catalog"]
+
+
+@pytest.mark.parametrize("module", OUT_OF_CORE)
+def test_out_of_core_modules_import_no_jax(module):
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'datafusion_tpu' or m.startswith('datafusion_tpu.'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--sf 1] [--h2o-rows 10000000] [--tpcds-sf 24]
                           [--clickbench-rows 10000000] [--repeat 3]
-                          [--only outofcore]
+                          [--only outofcore|udf]
 
 Run from the repository root on a machine with one CUDA card and nvcc. In
 order, it:
@@ -63,6 +63,32 @@ order, it:
      discovered list width and host syncs, N1/N3/N4/N6/N8 timed and
      profiled; a table whose largest group grows between two collect()s
      must send N1's query back to discovery;
+ 8b. user-defined functions, the Spark library and the DataFrame API
+     (run_udf): every case of testing/udf_cases.py (scalar, aggregate,
+     window, table and host functions) on the card, three collect()s of
+     one DataFrame, each equal to the CPU (floats to rtol 1e-9: the monoid
+     scans add in their own order), the steady state a captured graph but
+     for the host-function cases, which must run eagerly; each rejected
+     query raises the same class on both; each family and one query over
+     every Spark family captured under set_sync_debug_mode("error") and
+     replayed, and a UDF that reads a device value on the host refused
+     there; all 67 Spark SQL files of the reference's corpus and
+     async_udf.slt, record by record on the card and on the CPU, with the
+     same outcome; then over the SF 1 tables, through the checks of 7
+     (a captured graph, at most 2 host syncs per warm collect(), eager
+     and fused collect() in turns, one profile each way, the peak bytes
+     allocated): U1, Q1 with a scalar UDF in its WHERE clause, and U2,
+     Q1 and Q6 built with the DataFrame methods (each equal to the
+     oracle, U2 to the SQL query's answer exactly; the kernel launched
+     with the SQL query's G and route, held against its plain version
+     bit for bit and timed as in 5 at a new shape); U3, a geometric-mean
+     UDAF per order (1.5M groups), beside the built-in
+     exp(avg(ln(abs(x)))) over the same grouping; U4, a running-sum UDWF
+     per supplier; U6, Spark functions (sha2, xxhash64, pmod, bit_count,
+     shiftrightunsigned, round of a decimal) grouped by ship mode, each
+     against a numpy/hashlib oracle; U5, an async UDF over every row,
+     whose steady state must run eagerly on the card (its host syncs, its
+     collect() timed, one profile, and the host call alone timed);
   9. takes the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
      K = 100, seed 42; it and the hits table of 12 are generated in two
      worker processes started with the run, beside phases 1-8) and runs
@@ -154,6 +180,8 @@ Without a CUDA device it exits with code 2 at once. With `--only outofcore`
 it runs 2 (the build), then 14 alone over TPC-H at --sf, with the oracle's
 answers and the Parquet files made as the full run has them, and ends with
 a {"only": ...} line instead of 15: a quicker run for work on that phase.
+With `--only udf` it runs 2, TPC-H Q1 and Q6 at --sf as in 4 (the main
+path whose kernel calls U1 and U2 must repeat), then 8b alone.
 """
 from __future__ import annotations
 
@@ -161,6 +189,7 @@ import argparse
 import collections
 import ctypes
 import gc
+import hashlib
 import inspect
 import itertools
 import json
@@ -197,9 +226,12 @@ from datafusion_tpu_torch.ops import cuda_build
 from datafusion_tpu_torch.ops import dense_agg as DA
 from datafusion_tpu_torch.ops import kernels as K
 from datafusion_tpu_torch.data.device import to_host
+from datafusion_tpu_torch.expr import nodes as E
+from datafusion_tpu_torch.expr import udf as U
 from datafusion_tpu_torch.physical import functions as F
 from datafusion_tpu_torch.physical import fused as FQ
 from datafusion_tpu_torch.physical import plan as P
+from datafusion_tpu_torch.spark.functions import _xxhash64
 from datafusion_tpu_torch.testing.edge_cases import (CASES, ERRORS, FAMILIES,
                                                      edge_table, edge_types)
 from datafusion_tpu_torch.testing.nested_cases import CASES as NESTED_CASES
@@ -207,6 +239,8 @@ from datafusion_tpu_torch.testing.nested_cases import ERRORS as NESTED_ERRORS
 from datafusion_tpu_torch.testing.nested_cases import FAMILIES as NESTED_FAMILIES
 from datafusion_tpu_torch.testing.nested_cases import TPCH as NESTED_TPCH
 from datafusion_tpu_torch.testing.nested_cases import tables as nested_tables
+from datafusion_tpu_torch.testing import slt as port_slt
+from datafusion_tpu_torch.testing import udf_cases as UC
 
 # H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
@@ -718,8 +752,10 @@ def warm_timing(ctx, sql: str, repeat: int):
 
 def eager_collect(ctx, df) -> Table:
     """collect() without the steady state: the DataFrame's physical plan
-    operator by operator (the path discovery takes), then the host copy."""
-    return to_host(df.physical_plan().execute(ctx.exec_context()))
+    operator by operator (the path discovery takes), then the host copy;
+    under the session's function registry, as collect() runs."""
+    with U.activate(ctx.functions):
+        return to_host(df.physical_plan().execute(ctx.exec_context()))
 
 
 def query_timing(ctx, sf: float, qid: int, repeat: int, baseline) -> dict:
@@ -1136,9 +1172,10 @@ def check_segment_extremes(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def fused_query(ctx, label: str, sql: str, same, repeat: int, timed: bool = True,
+def fused_query(ctx, label: str, sql, same, repeat: int, timed: bool = True,
                 discovered=None) -> dict:
-    """One DataFrame collected three times -- discovery, the capture of its
+    """One DataFrame (of the SQL text `sql`, or the one `sql()` builds when
+    it is a callable) collected three times -- discovery, the capture of its
     steady state (then one replay), a replay -- each answer held by
     `same(table)` against the oracle; the steady state must be a captured
     CUDA graph, and one warm fused collect() may make 2 host syncs (its
@@ -1152,8 +1189,9 @@ def fused_query(ctx, label: str, sql: str, same, repeat: int, timed: bool = True
     as often as the steady state's eager run did, which launches it where
     discovery did (a sub-plan shared by two parents, such as Q15's view,
     runs once in the steady state)."""
+    make = sql if callable(sql) else lambda: ctx.sql(sql)
     if discovered is None:
-        df = ctx.sql(sql)
+        df = make()
         DA.reset_launches()
         t0 = time.perf_counter()
         got = df.collect()
@@ -1200,7 +1238,7 @@ def fused_query(ctx, label: str, sql: str, same, repeat: int, timed: bool = True
         full = []
         for _ in range(repeat):
             t0 = time.perf_counter()
-            ctx.sql(sql).collect()
+            make().collect()
             full.append((time.perf_counter() - t0) * 1e3)
         out["host_syncs"]["eager"] = host_syncs(lambda: eager_collect(ctx, df))
         expect = ("dense_groupby_sums",) if launches else ()
@@ -1760,22 +1798,23 @@ NESTED_TIMED = ("N1", "N3", "N4", "N6", "N8")
 NESTED_REPEAT = 3
 
 
-def same_values(a, b) -> bool:
-    """Equal Python values: lists element by element, floats to FLOAT_TOL."""
+def same_values(a, b, tol: float = FLOAT_TOL) -> bool:
+    """Equal Python values: lists element by element, floats to `tol`."""
     if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
         return (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
-                and len(a) == len(b) and all(same_values(x, y) for x, y in zip(a, b)))
+                and len(a) == len(b) and all(same_values(x, y, tol) for x, y in zip(a, b)))
     if isinstance(a, float) or isinstance(b, float):
         if a is None or b is None:
             return a is b
         if np.isnan(a) or np.isnan(b):
             return bool(np.isnan(a) and np.isnan(b))
-        return a == b or abs(a - b) <= FLOAT_TOL + FLOAT_TOL * abs(b)
+        return a == b or abs(a - b) <= tol + tol * abs(b)
     return a == b
 
 
-def same_pydict(got: dict, want: dict) -> bool:
-    return list(got) == list(want) and all(same_values(got[k], want[k]) for k in want)
+def same_pydict(got: dict, want: dict, tol: float = FLOAT_TOL) -> bool:
+    return list(got) == list(want) and all(same_values(got[k], want[k], tol)
+                                           for k in want)
 
 
 def list_widths(df) -> list:
@@ -2032,6 +2071,366 @@ def _plan_nodes(df) -> list:
         out.append(p)
         stack.extend(p.children())
     return out
+
+
+# ---------------------------------------------------------------------------
+# 8b. user-defined functions, the Spark library and the DataFrame API
+# ---------------------------------------------------------------------------
+
+UDF_REPEAT = 3
+SCAN_TOL = 1e-9  # rtol and atol of floats out of a monoid scan or a sum
+SLT_PORTED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "slt",
+                          "ported")
+
+
+def udf_sessions():
+    """A card and a CPU session over udf_cases' tables, each with the torch
+    half of every user function registered."""
+    card, cpu = SessionContext(), SessionContext(device="cpu")
+    for ctx in (card, cpu):
+        for name, cols in UC.tables().items():
+            ctx.register_table(name, cols)
+        UC.register(ctx)
+    return card, cpu
+
+
+def capture_checked(ctx, df):
+    """df's steady state captured under torch.cuda.set_sync_debug_mode(
+    "error") (a sync in its warm-up or capture raises): the _Graph. The
+    caller holds ctx's function registry active (U.activate)."""
+    df.collect()
+    fq = df._fused_query()
+    inputs = tuple(leaf.execute(ctx.exec_context()) for leaf in fq.leaves)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return FQ._Graph(fq._steady_fn(), inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def run_udf_card_vs_cpu() -> dict:
+    """Every case of testing/udf_cases.py on the card, three collect()s of
+    one DataFrame (discovery, the capture, a replay), each equal to the CPU
+    (floats to SCAN_TOL); a captured graph, but an eager steady state for
+    the host-function cases; each rejected query raises the same class on
+    both; each family and the Spark family query captured under
+    set_sync_debug_mode("error") and replayed twice, equal to the CPU; the
+    syncing UDF refused there."""
+    t0 = time.perf_counter()
+    card, cpu = udf_sessions()
+    steady = {}
+    for name, sql in sorted(UC.CASES.items()):
+        want = cpu.sql(sql).to_pydict()
+        df = card.sql(sql)
+        for i in range(3):
+            check(same_pydict(df.to_pydict(), want, SCAN_TOL),
+                  f"udf {name}: collect() {i + 1} on the card differs from the CPU")
+        kind = type(df._fused_query()._fused)
+        expect = FQ._Eager if name in UC.HOST_CASES else FQ._Graph
+        check(kind is expect, f"udf {name}: the steady state is {kind.__name__}, "
+                              f"not {expect.__name__}")
+        steady[name] = kind.__name__
+    for name, sql in sorted(UC.ERRORS.items()):
+        raised = []
+        for ctx in (card, cpu):
+            try:
+                ctx.sql(sql).collect()
+                raised.append(None)
+            except Exception as e:  # noqa: BLE001 -- compared between devices
+                raised.append(type(e).__name__)
+        check(raised[0] is not None and raised[0] == raised[1],
+              f"udf {name}: the card raises {raised[0]}, the CPU {raised[1]}")
+    families = dict(UC.FAMILIES)
+    spark_card, spark_cpu = SessionContext(), SessionContext(device="cpu")
+    for ctx in (spark_card, spark_cpu):
+        ctx.register_table("r", UC.tables()["r"])
+        ctx.enable_spark_functions()
+    for family, sql in sorted(families.items()) + [("spark", UC.SPARK_FAMILY)]:
+        ctx, ref = (spark_card, spark_cpu) if family == "spark" else (card, cpu)
+        want = ref.sql(sql).to_pydict()
+        with U.activate(ctx.functions):
+            graph = capture_checked(ctx, ctx.sql(sql))
+            for _ in range(2):
+                rel, overflow = graph.run()
+                check(not overflow, f"udf family {family}: the replay overflowed")
+                check(same_pydict(to_host(rel).to_pydict(), want, SCAN_TOL),
+                      f"udf family {family}: a replay differs from the CPU")
+    # a UDF that reads a device value on the host cannot be captured
+    try:
+        with U.activate(card.functions):
+            capture_checked(card, card.sql(UC.SYNCING))
+        refused = None
+    except RuntimeError as e:
+        refused = str(e).splitlines()[0][:120]
+    check(refused is not None and "synchroniz" in refused,
+          f"udf: the syncing UDF was captured ({refused})")
+    out = {"phase": "udf_card_vs_cpu", "cases": len(UC.CASES), "steady": steady,
+           "rejected": len(UC.ERRORS), "families_captured": sorted(families) + ["spark"],
+           "syncing_udf_refused": refused, "card_equals_cpu": True,
+           "s": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def _slt_outcome(ctx, rec):
+    try:
+        table = ctx.sql(rec.sql).collect()
+    except Exception:  # noqa: BLE001 -- an error is an outcome
+        return ("error",)
+    if rec.kind == "query":
+        return ("rows", tuple(port_slt.format_rows(table, rec.types, rec.sort_mode)))
+    return ("ok",)
+
+
+def run_spark_slt_card_vs_cpu() -> None:
+    """All 67 Spark SQL files of the reference's corpus and async_udf.slt,
+    record by record through testing/slt.py on a fresh Spark-enabled card
+    session and CPU session each: the same outcome for every record (a
+    statement succeeds or fails on both, a query fails on both or renders
+    the same rows)."""
+    t0 = time.perf_counter()
+    names = sorted(n for n in os.listdir(SLT_PORTED) if n.startswith("spark__"))
+    names.append("async_udf.slt")
+    check(len(names) == 68, f"{len(names)} Spark SQL files")
+    records = errors = 0
+    for name in names:
+        with open(os.path.join(SLT_PORTED, name)) as f:
+            recs = port_slt.parse_slt(f.read())
+        card, cpu = SessionContext(), SessionContext(device="cpu")
+        if name.startswith("spark__"):
+            card.enable_spark_functions()
+            cpu.enable_spark_functions()
+        for rec in recs:
+            got, want = _slt_outcome(card, rec), _slt_outcome(cpu, rec)
+            check(got == want, f"{name}:{rec.line}: the card's outcome {got} differs "
+                               f"from the CPU's {want}")
+            records += 1
+            errors += got == ("error",)
+    emit({"phase": "spark_slt_card_vs_cpu", "files": len(names), "records": records,
+          "errors_on_both": errors, "card_equals_cpu": True,
+          "s": time.perf_counter() - t0})
+
+
+def _raw(table: Table, name: str) -> np.ndarray:
+    return np.asarray(table.column(name).data)
+
+
+def udf_kernel_calls(label: str, calls: list, want: list, timing) -> list:
+    """The dense kernel's calls of a U query: the same G and route as the
+    SQL query's (`want`), each held against the plain version bit for bit,
+    and timed as in 5 at a shape not seen before."""
+    shapes, iters, flush, baseline, seen = timing
+
+    def routes(cs):
+        return [(G, DA.kernel_route(G, len(DA.distinct_pairs(p)[0]))) for _, _, p, G in cs]
+
+    got = routes(calls)
+    check(got and got == routes(want),
+          f"{label}: kernel calls {got}, the SQL query's {routes(want)}")
+    for seg, mask, pairs, G in calls:
+        a = DA.dense_groupby_sums(seg, mask, pairs, G)
+        b = DA.dense_groupby_sums_plain(seg, mask, pairs, G)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{label}: the kernel differs from its plain version (G={G})")
+        shape = (int(seg.shape[0]), G, len(pairs))
+        if shape not in seen:
+            seen.add(shape)
+            t = kernel_timing((seg, mask, pairs, G), iters, flush, baseline)
+            shapes[f"{label}_G{G}"] = t
+            emit({"kernel_timing": KERNEL["name"], "shape": f"{label}_G{G}", **t})
+    return [{"G": G, "route": r} for G, r in got]
+
+
+def udf_oracles(tables: dict) -> dict:
+    """numpy / hashlib answers of U3-U6 over the host lineitem."""
+    li = tables["lineitem"]
+    ok = _raw(li, "l_orderkey").astype(np.int64)
+    price = _raw(li, "l_extendedprice")  # cents
+    n = len(ok)
+    out = {}
+    order = np.argsort(ok, kind="stable")
+    keys, starts = np.unique(ok[order], return_index=True)
+    counts = np.diff(np.append(starts, n))
+    logs = np.log(price[order] / 100.0)
+    out["U3"] = (keys, np.exp(np.add.reduceat(logs, starts) / counts))
+    sk = _raw(li, "l_suppkey")
+    ln = _raw(li, "l_linenumber").astype(np.int64)
+    order = np.lexsort((ln, ok, _raw(li, "l_shipdate"), sk))
+    q = _raw(li, "l_quantity")[order] / 100.0
+    cs = np.cumsum(q)
+    first = np.r_[True, sk[order][1:] != sk[order][:-1]]
+    base = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+    rows = ok[order] * 8 + ln[order]
+    back = np.argsort(rows)
+    out["U4"] = (rows[back], (cs - cs[base] + q[base])[back])
+    out["U5"] = (2.0 * float(price.sum()) / 100.0, n)
+    codes, modes = _raw(li, "l_shipmode"), li.column("l_shipmode").dictionary.values
+    pop = (np.bitwise_count(ok.view(np.uint64)) if hasattr(np, "bitwise_count") else
+           np.unpackbits(ok.view(np.uint8)).reshape(n, 64).sum(1))
+    su = (-ok).view(np.uint64) >> np.uint64(40)
+    rounded = (price + 50) // 100 * 100  # HALF_UP to whole units (prices > 0)
+    u6 = {}
+    for i, m in enumerate(modes):
+        sel = codes == i
+        x = _xxhash64(str(m).encode())
+        u6[hashlib.sha256(str(m).encode()).hexdigest()] = (
+            x - (1 << 64) if x >= 1 << 63 else x, int(sel.sum()), int((ok[sel] % 7).sum()),
+            int(pop[sel].sum()), int(su[sel].sum()), int(rounded[sel].sum()))
+    out["U6"] = u6
+    return out
+
+
+def _same_u3(oracle):
+    keys, gm = oracle
+
+    def same(got: Table):
+        k, v = _raw(got, "l_orderkey").astype(np.int64), _raw(got, "gm")
+        order = np.argsort(k)
+        check(np.array_equal(k[order], keys), "U3: the groups differ from the oracle")
+        check(np.allclose(v[order], gm, rtol=SCAN_TOL, atol=0),
+              "U3: a geometric mean differs from the oracle")
+    return same
+
+
+def _same_u4(oracle):
+    rows, rs = oracle
+
+    def same(got: Table):
+        key = _raw(got, "l_orderkey").astype(np.int64) * 8 + _raw(got, "l_linenumber")
+        order = np.argsort(key)
+        check(np.array_equal(key[order], rows), "U4: the rows differ from the oracle")
+        check(np.array_equal(_raw(got, "rs")[order], rs),
+              "U4: a running sum differs from the oracle (sums of whole numbers: exact)")
+    return same
+
+
+def _same_u6(oracle):
+    def same(got: Table):
+        d = got.to_pydict()
+        ans = {h: (x, n, pm, bc, su, int(r)) for h, x, n, pm, bc, su, r in zip(
+            d["h"], d["x"], d["n"], d["pm"], d["bc"], d["su"], _raw(got, "r"))}
+        check(ans == oracle, f"U6 differs from the oracle: {ans} != {oracle}")
+    return same
+
+
+def host_query(ctx, label: str, sql: str, same, repeat: int) -> dict:
+    """A query calling a host function: three collect()s of one DataFrame
+    each held by `same`, whose steady state must run eagerly on the card
+    (not a captured graph); its host syncs per warm collect(), eager and
+    steady collect() timed in turns, and one profile."""
+    df = ctx.sql(sql)
+    for _ in range(3):
+        same(df.collect())
+    fq = df._fused_query()
+    check(isinstance(fq._fused, FQ._Eager) and fq._fused is not False,
+          f"{label}: the steady state is {type(fq._fused).__name__}, not eager")
+    syncs = host_syncs(df.collect)
+    turns = {"eager": [], "steady": []}
+    for i in range(2 * repeat):
+        name = ("eager", "steady", "steady", "eager")[i % 4]
+        t0 = time.perf_counter()
+        eager_collect(ctx, df) if name == "eager" else df.collect()
+        turns[name].append((time.perf_counter() - t0) * 1e3)
+    prof = profile_call(f"{label}_steady", df.collect)
+    emit(prof)
+    return {"host_query": label, "graph": False, "steady": type(fq._fused).__name__,
+            "host_syncs": syncs, "collect_ms_in_turns": turns,
+            "eager_collect_ms_median": statistics.median(turns["eager"]),
+            "steady_collect_ms_median": statistics.median(turns["steady"]),
+            "busy_ms": prof["device_busy_ms"], "idle_share": prof["device_idle_share"],
+            "matches_oracle": True}
+
+
+def run_udf(ctx, tables: dict, refs: dict, main_path: dict, sf: float, repeat: int,
+            timing) -> int:
+    """The udf phase: the case table and the Spark SQL files on the card
+    against the CPU, then U1-U6 over the TPC-H tables already on the card
+    (a session sharing ctx's providers, with the user functions and the
+    Spark library), each against its oracle; returns the dense kernel's
+    launches in the discovery runs of U1 and U2."""
+    t0 = time.perf_counter()
+    run_udf_card_vs_cpu()
+    run_spark_slt_card_vs_cpu()
+    uctx = SessionContext()
+    for name in tables:
+        uctx.register_table(name, ctx.catalog.get(name))
+    UC.register(uctx)
+    uctx.enable_spark_functions()
+    oracles = udf_oracles(tables)
+    torch.cuda.reset_peak_memory_stats()
+    launches, peaks = 0, {}
+
+    def oracle_of(qid):
+        def same(got: Table):
+            diff = frames_diff(got.to_pandas(), refs[qid], ordered=True)
+            check(diff is None, f"udf Q{qid} differs from the pandas oracle: {diff}")
+        return same
+
+    for label, qid, make in (("U1", 1, lambda: uctx.sql(UC.U1)),
+                             ("U2_q1", 1, lambda: UC.q1_dataframe(uctx, E)),
+                             ("U2_q6", 6, lambda: UC.q6_dataframe(uctx, E))):
+        sql_answer = uctx.sql(query(qid, sf)).collect().to_pydict()
+        same_oracle = oracle_of(qid)
+
+        def same(got: Table, same_oracle=same_oracle, sql_answer=sql_answer, label=label):
+            same_oracle(got)
+            if label.startswith("U2"):
+                check(got.to_pydict() == sql_answer,
+                      f"{label}: the built query's answer differs from the SQL query's")
+
+        df = make()
+        DA.reset_launches()
+        with RecordKernelInputs() as rec:
+            t1 = time.perf_counter()
+            got = df.collect()
+            ms = (time.perf_counter() - t1) * 1e3
+        n = DA.launches
+        same(got)
+        launches += n
+        calls = udf_kernel_calls(f"udf_{label}", rec.calls, main_path[qid][1], timing)
+        torch.cuda.reset_peak_memory_stats()
+        out = fused_query(uctx, f"udf_{label}", make, same, repeat,
+                          discovered=(df, ms, n))
+        out.update({"kernel_calls": calls, "peak_allocated": torch.cuda.max_memory_allocated()})
+        peaks[label] = out["peak_allocated"]
+        emit(out)
+    for label, sql, same in (("U3", UC.U3, _same_u3(oracles["U3"])),
+                             ("U3_builtin", UC.U3_BUILTIN, _same_u3(oracles["U3"])),
+                             ("U4", UC.U4, _same_u4(oracles["U4"])),
+                             ("U6", UC.U6, _same_u6(oracles["U6"]))):
+        torch.cuda.reset_peak_memory_stats()
+        out = fused_query(uctx, f"udf_{label}", sql, same, repeat)
+        out["peak_allocated"] = peaks[label] = torch.cuda.max_memory_allocated()
+        emit(out)
+
+    def same_u5(got: Table):
+        d = got.to_pydict()
+        s, n = oracles["U5"]
+        check(d["n"] == [n] and abs(d["s"][0] - s) <= SCAN_TOL * abs(s),
+              f"U5 differs from the oracle: {d} != {(s, n)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    out = host_query(uctx, "udf_U5", UC.U5, same_u5, repeat)
+    price = uctx.catalog.get("lineitem").scan_device(uctx.exec_context()).column(
+        "l_extendedprice")
+    x = U.udf_input_array(price)
+    host = uctx.functions.scalar("twice").fn
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(repeat):
+        t1 = time.perf_counter()
+        host(x)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    out.update({"host_call_ms_median": statistics.median(ms), "host_call_rows": x.shape[0],
+                "peak_allocated": torch.cuda.max_memory_allocated()})
+    peaks["U5"] = out["peak_allocated"]
+    emit(out)
+    emit({"phase": "udf", "launches": launches, "s": time.perf_counter() - t0,
+          "peak_allocated": max(peaks.values()), "peak_allocated_by_query": peaks,
+          "memory_reserved": torch.cuda.memory_reserved()})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2772,6 +3171,32 @@ def run_outofcore_only(args) -> int:
     return 0
 
 
+def run_udf_only(args) -> int:
+    """`--only udf`: the kernels built, TPC-H at --sf in a session on the
+    card, Q1 and Q6 through the main path (run_main_path: their kernel
+    calls, which U1 and U2 must repeat) and their oracle answers, then
+    run_udf."""
+    t0 = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    cuda_build.build_all([DA.SOURCE, BASELINE])
+    baseline = baseline_call(cuda_build.load(BASELINE))
+    tables = generate_tpch(args.sf, cache=False)
+    ctx = SessionContext()
+    for name, table in tables.items():
+        ctx.register_table(name, table)
+    frames = oracle_tables(tables)
+    main_path = run_main_path(ctx, frames, args.sf)
+    refs = {q: ref_query(q, frames, args.sf) for q in (1, 6)}
+    emit({"setup_s": time.perf_counter() - t0})
+    launches = run_udf(ctx, tables, refs, main_path, args.sf,
+                       min(args.repeat, UDF_REPEAT),
+                       ({}, args.iters, L2Flush(torch.device("cuda")), baseline, set()))
+    print(card_line(), flush=True)
+    emit({"only": "udf", "launches": launches, "total_s": time.perf_counter() - t0})
+    return 0
+
+
 def generate_table(kind: str, rows: int):
     """(the h2o groupby table or the ClickBench hits table of `rows` rows,
     the seconds it took), in a worker process."""
@@ -2797,7 +3222,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per kernel timing, each after an "
                          "L2 flush (the median is reported)")
-    ap.add_argument("--only", choices=("outofcore",),
+    ap.add_argument("--only", choices=("outofcore", "udf"),
                     help="run the kernels' build and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2806,6 +3231,8 @@ def main() -> int:
         return 2
     if args.only == "outofcore":
         return run_outofcore_only(args)
+    if args.only == "udf":
+        return run_udf_only(args)
     # the h2o and ClickBench tables take minutes of host time to generate:
     # two worker processes make them while the earlier phases run
     workers = multiprocessing.get_context("spawn").Pool(2)
@@ -2902,6 +3329,10 @@ def run(args, generated: dict) -> int:
     emit({"elapsed_s": time.perf_counter() - t_run, "after": "tpch"})
     run_nested(ctx, tables, min(args.repeat, NESTED_REPEAT))
     emit({"elapsed_s": time.perf_counter() - t_run, "after": "nested"})
+    launches += run_udf(ctx, tables, refs, main_path, args.sf,
+                        min(args.repeat, UDF_REPEAT),
+                        (shapes, args.iters, flush, baseline, seen))
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "udf"})
 
     check_segment_extremes(dev)
     t0 = time.perf_counter()

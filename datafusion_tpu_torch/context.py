@@ -1,23 +1,26 @@
 """SessionContext + DataFrame: the user-facing API.
 
-Port of the SQL path of datafusion_tpu/context.py: register in-memory
-tables, pyarrow tables, pandas frames and files (Parquet, CSV, JSON, Arrow
-IPC, Avro), run the session's statements (SELECT, EXPLAIN, CREATE [EXTERNAL]
-TABLE, CREATE VIEW, DROP TABLE, COPY ... TO, INSERT INTO, DELETE, UPDATE,
-SHOW, SET, PREPARE/EXECUTE/DEALLOCATE), collect results. Plans run on the
-session's device, which is the CUDA card unless the caller passes another
-(`SessionContext(device="cpu")`): operator by operator the first time a
-DataFrame is collected, then as a steady state (physical/fused.py). A
-session with a memory limit (`execution.memory_limit_bytes`) streams a query
-whose scans would not fit in it chunk by chunk instead
-(`execution.out_of_core`, physical/chunked.py), as it does every query over
-a streaming table (`register_streaming_table`); `DataFrame.execute_stream`
-yields a query's answer chunk by chunk. EXPLAIN ANALYZE, UDF registration,
-the DataFrame plan-building methods and the Substrait/protobuf interchange
-are not ported yet (ROADMAP queue 1, item 12 'Remaining surface')."""
+Port of datafusion_tpu/context.py: register in-memory tables, pyarrow
+tables, pandas frames, files (Parquet, CSV, JSON, Arrow IPC, Avro) and
+native plugins; register user-defined functions (scalar, aggregate, window,
+table and host/async ones) and the Spark function library; run the
+session's statements (SELECT, EXPLAIN [ANALYZE], CREATE [EXTERNAL] TABLE,
+CREATE VIEW, DROP TABLE, COPY ... TO, INSERT INTO, DELETE, UPDATE, SHOW,
+SET, PREPARE/EXECUTE/DEALLOCATE) or build plans with the DataFrame methods;
+collect results. Plans run on the session's device, which is the CUDA card
+unless the caller passes another (`SessionContext(device="cpu")`): operator
+by operator the first time a DataFrame is collected, then as a steady state
+(physical/fused.py). A session with a memory limit
+(`execution.memory_limit_bytes`) streams a query whose scans would not fit
+in it chunk by chunk instead (`execution.out_of_core`, physical/chunked.py),
+as it does every query over a streaming table (`register_streaming_table`);
+`DataFrame.execute_stream` yields a query's answer chunk by chunk. The
+Substrait/protobuf interchange is not ported yet (ROADMAP queue 1, item 12
+'Remaining surface')."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+import threading
+from typing import Dict, Optional, Sequence, Union as TyUnion
 
 from .catalog.catalog import (ArrowTable, AvroTable, Catalog, CsvTable,
                               JsonTable, MemTable, ParquetTable, TableProvider)
@@ -27,7 +30,8 @@ from .common.schema import Field, Schema
 from .expr import nodes as E
 from .data.device import resolve_device, to_host
 from .data.table import Table
-from .expr.udf import FunctionRegistry, with_registry
+from .expr.udf import (AggregateUDF, FunctionRegistry, ScalarUDF, TableUDF,
+                       WindowUDF, make_async_scalar, with_registry)
 from .logical import plan as L
 from .physical.planner import create_physical_plan
 from .runtime.context import ExecContext, planning_device
@@ -47,9 +51,17 @@ class SessionContext:
         self.options = ConfigOptions(self.config)
         self.functions = FunctionRegistry()
         self._prepared: Dict[str, object] = {}  # PREPARE name -> A.Prepare
+        self._cancel = threading.Event()
         # back-link for session-scoped virtual tables
         # (information_schema.df_settings / routines)
         self.catalog.session = self
+
+    def interrupt(self):
+        """Cancel queries currently executing under this session (analog of
+        dropping the reference's record-batch stream): the cooperative check
+        runs at every operator dispatch and chunk, so a steady state (one
+        CUDA graph replay) cancels at its next collect()."""
+        self._cancel.set()
 
     def register_object_store(self, url: str, store) -> None:
         """Register an ObjectStore for a URL scheme/authority so external
@@ -105,8 +117,82 @@ class SessionContext:
     def deregister_table(self, name: str) -> None:
         self.catalog.deregister(name)
 
+    # ---- user-defined functions (reference: expr/src/udf.rs:537,
+    # SessionContext::register_udf, core/src/execution/context/mod.rs) ------
+    def register_udf(self, name: str, fn, return_type: T.DataType,
+                     nullable: bool = True) -> None:
+        """Register a scalar UDF callable from SQL and the DataFrame API.
+
+        `fn` receives one torch tensor per argument on the session's device
+        (vectorized over the whole column; decimals arrive descaled as
+        float64, dates as int32 days) and returns a tensor, or a (tensor,
+        validity) pair for custom NULL semantics."""
+        self.functions.register_scalar(ScalarUDF(name, fn, return_type, nullable))
+
+    def register_udaf(self, name: str, state, combine, identity, finalize,
+                      return_type: T.DataType, nullable: bool = True) -> None:
+        """Register an aggregate UDF as a commutative monoid:
+        state(x) -> pytree of per-row tensors, combine(a, b) -> pytree
+        (associative), identity a pytree of scalars, finalize(state) ->
+        values. One segmented associative scan evaluates it per group
+        (reference: udaf.rs + accumulator.rs:51 state/merge_batch contract)."""
+        self.functions.register_aggregate(
+            AggregateUDF(name, state, combine, identity, finalize,
+                         return_type, nullable))
+
+    def register_udwf(self, name: str, state, combine, identity, finalize,
+                      return_type: T.DataType, nullable: bool = True) -> None:
+        """Register a window UDF (same monoid spec, evaluated as a running
+        partition-resetting scan over the default frame; reference: udwf.rs)."""
+        self.functions.register_window(
+            WindowUDF(name, state, combine, identity, finalize,
+                      return_type, nullable))
+
+    def register_async_udf(self, name: str, fn, return_type: T.DataType,
+                           nullable: bool = True) -> None:
+        """Register a host-side (optionally `async def`) scalar function --
+        e.g. a remote-service or model call -- invoked once per batch with
+        numpy arrays; its result goes back to the session's device. A query
+        holding one runs eagerly, outside a captured CUDA graph (reference:
+        AsyncFuncExec, physical-plan/src/async_func.rs)."""
+        self.functions.register_scalar(
+            make_async_scalar(name, fn, return_type, nullable))
+
+    def enable_spark_functions(self) -> None:
+        """Opt this session into the Spark-compatible function library
+        (reference: datafusion-spark crate, spark/src/function/): Spark-only
+        names (sha2, crc32, elt, date_add, ...) become available, and names
+        whose Spark semantics differ (round = HALF_UP, substring with
+        negative positions) switch to the Spark behavior."""
+        self.functions.spark = True
+
+    def register_plugin(self, path: str) -> dict:
+        """Load a native plugin shared library (see native/plugin.h): its
+        table providers join the catalog (rows cross the boundary as Arrow
+        record batches over the Arrow C Data Interface) and its scalar
+        functions become SQL-callable host functions (reference:
+        datafusion-ffi crate, ffi/src/lib.rs:28-55)."""
+        from .interchange.ffi import load_plugin
+
+        return load_plugin(self, path)
+
+    def register_udtf(self, name: str, fn) -> None:
+        """Register a table function usable in FROM position:
+        `fn(*literal_args)` runs host-side and returns a dict of columns or a
+        Table (reference: TableFunctionImpl, catalog/src/table.rs;
+        functions-table/)."""
+        self.functions.register_table_function(TableUDF(name, fn))
+
+    # ---- plan entry points ----------------------------------------------
     def table(self, name: str) -> "DataFrame":
         return DataFrame(self, L.TableScan(name, self.catalog.get(name)))
+
+    def from_substrait(self, doc) -> "DataFrame":
+        raise NotImplementedError(f"Substrait plans are not ported yet ({_SURFACE_ITEM})")
+
+    def from_proto(self, data: bytes) -> "DataFrame":
+        raise NotImplementedError(
+            f"DataFusion protobuf plans are not ported yet ({_SURFACE_ITEM})")
 
     @with_registry
     def sql(self, query: str) -> "DataFrame":
@@ -160,11 +246,9 @@ class SessionContext:
         if isinstance(stmt, A.SelectStmt):
             return DataFrame(self, SqlPlanner(self.catalog).plan_statement(stmt))
         if isinstance(stmt, A.Explain):
-            if stmt.analyze:
-                raise NotImplementedError(
-                    f"EXPLAIN ANALYZE is not ported yet ({_SURFACE_ITEM})")
-            plan = SqlPlanner(self.catalog).plan_statement(stmt.query)
-            text = DataFrame(self, plan).explain(format=getattr(stmt, "format", None))
+            df = DataFrame(self, SqlPlanner(self.catalog).plan_statement(stmt.query))
+            text = (df.explain_analyze() if stmt.analyze
+                    else df.explain(format=getattr(stmt, "format", None)))
             lines = Table.from_pydict({"plan": text.splitlines()},
                                       {"plan": T.STRING})
             return DataFrame(self, L.TableScan("explain", MemTable(lines)))
@@ -405,13 +489,226 @@ class SessionContext:
     def exec_context(self) -> ExecContext:
         merged = self.options.to_dict()
         merged.update(self.config)
+        self._cancel.clear()  # a new execution starts un-cancelled
+        merged["_cancel_event"] = self._cancel
         return ExecContext(merged, self.device)
+
+
+_JOIN_TYPES = {"inner": L.JoinType.INNER, "left": L.JoinType.LEFT,
+               "right": L.JoinType.RIGHT, "full": L.JoinType.FULL,
+               "semi": L.JoinType.LEFT_SEMI, "anti": L.JoinType.LEFT_ANTI,
+               "cross": L.JoinType.CROSS}
 
 
 class DataFrame:
     def __init__(self, ctx: SessionContext, plan: L.LogicalPlan):
         self._ctx = ctx
         self._plan = plan
+
+    def _new(self, plan: L.LogicalPlan) -> "DataFrame":
+        return DataFrame(self._ctx, plan)
+
+    # ---- builders (reference: DataFrame API + LogicalPlanBuilder) -------
+    @with_registry
+    def select(self, *exprs: TyUnion[str, E.Expr]) -> "DataFrame":
+        return self._new(L.Projection(
+            self._plan, [E.col(e) if isinstance(e, str) else e for e in exprs]))
+
+    def filter(self, predicate: E.Expr) -> "DataFrame":
+        return self._new(L.Filter(self._plan, predicate))
+
+    @with_registry
+    def aggregate(self, group_by: Sequence[E.Expr], aggs: Sequence[E.Expr]) -> "DataFrame":
+        return self._new(L.Aggregate(self._plan, list(group_by), list(aggs)))
+
+    def sort(self, *specs) -> "DataFrame":
+        return self._new(L.Sort(self._plan, [s if isinstance(s, E.SortSpec)
+                                             else E.SortSpec(s) for s in specs]))
+
+    def limit(self, fetch: int, skip: int = 0) -> "DataFrame":
+        return self._new(L.Limit(self._plan, skip, fetch))
+
+    def join(self, right: "DataFrame", on: Sequence, how: str = "inner",
+             filter: Optional[E.Expr] = None) -> "DataFrame":
+        """Equi-join on `on`: column names (the same on both sides) or
+        (left, right) pairs of names or expressions."""
+        pairs = []
+        for item in on:
+            if isinstance(item, str):
+                pairs.append((E.col(item), E.col(item)))
+            else:
+                l, r = item
+                pairs.append((E.col(l) if isinstance(l, str) else l,
+                              E.col(r) if isinstance(r, str) else r))
+        return self._new(L.Join(self._plan, right._plan, pairs, _JOIN_TYPES[how],
+                                filter))
+
+    def distinct(self) -> "DataFrame":
+        return self._new(L.Distinct(self._plan))
+
+    def union(self, other: "DataFrame", all: bool = True) -> "DataFrame":
+        u = L.Union([self._plan, other._plan], all=True)
+        return self._new(u if all else L.Distinct(u))
+
+    def alias(self, name: str) -> "DataFrame":
+        return self._new(L.SubqueryAlias(self._plan, name))
+
+    # ---- reference DataFrame surface (core/src/dataframe/mod.rs) --------
+    def select_columns(self, *names: str) -> "DataFrame":
+        return self.select(*names)
+
+    def drop_columns(self, *names: str) -> "DataFrame":
+        return self._new(L.Projection(self._plan, [
+            E.Column(f.name, f.qualifier) for f in self._plan.schema.fields
+            if f.name not in names]))
+
+    def with_column(self, name: str, expr: E.Expr) -> "DataFrame":
+        """Add (or replace) one column (reference: DataFrame::with_column)."""
+        fields = self._plan.schema.fields
+        exprs = [E.Alias(expr, name) if f.name == name else E.Column(f.name, f.qualifier)
+                 for f in fields]
+        if all(f.name != name for f in fields):
+            exprs.append(E.Alias(expr, name))
+        return self._new(L.Projection(self._plan, exprs))
+
+    def with_column_renamed(self, old: str, new: str) -> "DataFrame":
+        return self._new(L.Projection(self._plan, [
+            E.Alias(E.Column(f.name, f.qualifier), new) if f.name == old
+            else E.Column(f.name, f.qualifier) for f in self._plan.schema.fields]))
+
+    def union_distinct(self, other: "DataFrame") -> "DataFrame":
+        return self.union(other, all=False)
+
+    def union_by_name(self, other: "DataFrame", all: bool = True) -> "DataFrame":
+        """Union matching columns by NAME, not position (reference:
+        union_by_name): the right side is re-projected into the left's
+        column order."""
+        rhs = L.Projection(other._plan, [E.Column(f.name, None)
+                                         for f in self._plan.schema.fields])
+        u = L.Union([self._plan, rhs], all=True)
+        return self._new(u if all else L.Distinct(u))
+
+    def _setop(self, other: "DataFrame", jt: L.JoinType) -> "DataFrame":
+        on = [(E.Column(f.name, f.qualifier), E.Column(g.name, g.qualifier))
+              for f, g in zip(self._plan.schema.fields, other._plan.schema.fields)]
+        return self._new(L.Distinct(L.Join(self._plan, other._plan, on, jt, None)))
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        return self._setop(other, L.JoinType.LEFT_SEMI)
+
+    intersect_distinct = intersect
+
+    def except_all(self, other: "DataFrame") -> "DataFrame":
+        return self._setop(other, L.JoinType.LEFT_ANTI)
+
+    except_ = except_distinct = except_all
+
+    def distinct_on(self, on_exprs: Sequence[E.Expr],
+                    select_exprs: Sequence[E.Expr],
+                    sort_exprs: Optional[Sequence] = None) -> "DataFrame":
+        """First row per distinct on_exprs value, ordered by sort_exprs
+        (reference: DataFrame::distinct_on / DISTINCT ON)."""
+        order = [s if isinstance(s, E.SortSpec) else E.SortSpec(s)
+                 for s in (sort_exprs or [])]
+        rn = E.Alias(E.WindowFunction("row_number", (), tuple(on_exprs),
+                                      tuple(order), None), "__df_rn")
+        first = L.Filter(L.Window(self._plan, [rn]),
+                         E.BinaryOp(E.Op.EQ, E.Column("__df_rn", None), E.lit(1)))
+        return self._new(L.Projection(first, list(select_exprs)))
+
+    def fill_null(self, value, columns: Sequence[str] = ()) -> "DataFrame":
+        cols = set(columns or [f.name for f in self._plan.schema.fields])
+        exprs = []
+        for f in self._plan.schema.fields:
+            c = E.Column(f.name, f.qualifier)
+            if f.name in cols and f.nullable:
+                c = E.Alias(E.ScalarFunction("coalesce", (c, E.lit(value))), f.name)
+            exprs.append(c)
+        return self._new(L.Projection(self._plan, exprs))
+
+    def unnest_columns(self, *names: str) -> "DataFrame":
+        """Explode list columns in place (reference: unnest_columns -- the
+        exploded elements REPLACE the list column under its name)."""
+        plan = self._plan
+        for n in names:
+            u = L.Unnest(plan, [E.Column(n, None)], names=[f"__unnest_{n}"])
+            plan = L.Projection(u, [
+                E.Alias(E.Column(f"__unnest_{n}", None), n) if f.name == n
+                else E.Column(f.name, f.qualifier) for f in plan.schema.fields])
+        return self._new(plan)
+
+    def sort_by(self, *exprs) -> "DataFrame":
+        return self.sort(*exprs)
+
+    def join_on(self, right: "DataFrame", how: str = "inner",
+                *predicates: E.Expr) -> "DataFrame":
+        """Join on arbitrary predicates (reference: DataFrame::join_on);
+        the optimizer extracts equi-pairs from the conjunction. `how` is
+        one of join()'s but "cross"."""
+        if how == "cross":  # a cross join has no predicate to join on
+            raise PlanError("join_on needs a join type other than 'cross'")
+        pred = None
+        for p in predicates:
+            pred = p if pred is None else E.BinaryOp(E.Op.AND, pred, p)
+        return self._new(L.Join(self._plan, right._plan, [], _JOIN_TYPES[how], pred))
+
+    def describe(self) -> Table:
+        """Summary statistics per column (reference: DataFrame::describe):
+        count, null_count, mean, std, min, max, median rows (NaN for a
+        non-numeric column)."""
+        import math
+
+        import numpy as np
+
+        t = self.collect()
+        d = t.to_pydict()
+        out: Dict[str, list] = {"describe": ["count", "null_count", "mean", "std",
+                                             "min", "max", "median"]}
+        for f in t.schema.fields:
+            vals = d[f.name]
+            nn = [v for v in vals if v is not None]
+            col = [float(len(vals)), float(len(vals) - len(nn))]
+            if f.dtype.is_numeric and nn:
+                arr = np.asarray(nn, dtype=float)
+                col += [float(arr.mean()),
+                        float(arr.std(ddof=1)) if len(arr) > 1 else math.nan,
+                        float(arr.min()), float(arr.max()), float(np.median(arr))]
+            else:
+                col += [math.nan] * 5
+            out[f.name] = col
+        return Table.from_pydict(out)
+
+    def cache(self) -> "DataFrame":
+        """Materialize and continue from an in-memory table (reference:
+        DataFrame::cache)."""
+        t = self.collect()
+        name = f"__cache_{id(t)}"
+        self._ctx.catalog.register(name, MemTable(t))
+        return self._ctx.table(name)
+
+    def into_view(self, name: str) -> None:
+        """Register this DataFrame's plan as a named view
+        (reference: DataFrame::into_view)."""
+        self._ctx.catalog.views[name.lower()] = self._plan
+
+    @with_registry
+    def window(self, window_exprs: Sequence[E.Expr]) -> "DataFrame":
+        return self._new(L.Window(self._plan, list(window_exprs)))
+
+    # ---- introspection ---------------------------------------------------
+    @property
+    def schema(self) -> Schema:
+        return self._plan.schema
+
+    def logical_plan(self) -> L.LogicalPlan:
+        return self._plan
+
+    def to_substrait(self) -> dict:
+        raise NotImplementedError(f"Substrait plans are not ported yet ({_SURFACE_ITEM})")
+
+    def to_proto(self) -> bytes:
+        raise NotImplementedError(
+            f"DataFusion protobuf plans are not ported yet ({_SURFACE_ITEM})")
 
     @with_registry
     def optimized_plan(self) -> L.LogicalPlan:
@@ -450,6 +747,32 @@ class DataFrame:
         if ponly and not lonly:
             return f"== Physical Plan ==\n{ptxt}"
         return f"== Logical Plan ==\n{ltxt}\n== Physical Plan ==\n{ptxt}"
+
+    @with_registry
+    def explain_analyze(self) -> str:
+        """Execute the plan operator by operator and report per-operator
+        metrics (reference: AnalyzeExec, physical-plan/src/analyze.rs:46 +
+        EXPLAIN ANALYZE rendering); elapsed times are host times, which on a
+        CUDA device are the times to enqueue each operator's kernels."""
+        import time
+
+        import torch
+
+        ctx = self._ctx.exec_context()
+        phys = self.physical_plan()
+        t0 = time.perf_counter()
+        rel = phys.execute(ctx)
+        rows = int(rel.num_rows())  # waits for the device
+        if rel.sel.device.type == "cuda":
+            torch.cuda.synchronize(rel.sel.device)
+        total = time.perf_counter() - t0
+        lines = ["== Physical Plan (EXPLAIN ANALYZE) ==", phys.display(),
+                 f"-- total: {total * 1000:.2f} ms, output rows: {rows}",
+                 f"-- peak device memory accounted: {ctx.memory_pool.peak / 1e6:.1f} MB"]
+        for name, m in sorted(ctx.metrics.items()):
+            lines.append(f"--   {name}: elapsed={m.elapsed_seconds * 1000:.2f} ms"
+                         + (f", rows={m.output_rows}" if m.output_rows else ""))
+        return "\n".join(lines)
 
     @with_registry
     def collect(self) -> Table:
@@ -526,11 +849,17 @@ class DataFrame:
     def to_pydict(self):
         return self.collect().to_pydict()
 
+    def count(self) -> int:
+        return self.collect().num_rows
+
     def write_parquet(self, path: str) -> None:
         self.collect().write_parquet(path)
 
     def write_csv(self, path: str) -> None:
         self.collect().write_csv(path)
+
+    def show(self, limit: int = 20):
+        print(self.limit(limit).to_pandas().to_string(index=False))
 
 
 def _chunk_rows(ctx) -> int:

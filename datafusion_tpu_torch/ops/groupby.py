@@ -13,16 +13,17 @@ Where the reference differs from this port, and why:
 * group starts come from one scatter of the start rows' indices at their
   segment ids, not from a stable sort of ~is_start (same starts, no sort);
 * segment min/max are `scatter_reduce_` over the segment ids, not a
-  segmented associative scan (torch has none); bitwise aggregates keep the
-  scan, as a log-step (Hillis-Steele) segmented scan;
+  segmented associative scan (torch has none); bitwise aggregates and
+  aggregate UDFs keep the scan, as a log-step (Hillis-Steele) segmented
+  scan (kernels.segmented_scan);
 * floating-point sums on the sorted path are per-segment reductions, not
   differences of one running prefix sum: a difference of prefix sums loses
   half an ulp of the running total per group (about 3e-8 at h2o's 1e7-row
   scale, far outside 1e-9 for one-row groups). Integer sums and counts keep
   the prefix differences, which are exact.
 * approx_distinct is the exact distinct count over sorted runs, as the
-  reference's default (its HyperLogLog sketch, ops/hll.py, is opt-in there);
-  aggregate UDFs are not ported yet: ROADMAP queue 1, item 9c;
+  reference's default (its HyperLogLog sketch, ops/hll.py, is opt-in there
+  and waits for ROADMAP queue 1, item 11);
 * array_agg / string_agg take each group's start and size from the sorted
   path's group starts (SortedSegments), not from a segment_min of row ids
   and a segment_count scatter, and string_agg compacts its non-NULL values
@@ -40,9 +41,6 @@ from ..common import types as T
 from ..common.errors import PlanError
 from ..data.device import DeviceColumn, is_integer, torch_dtype
 from . import kernels as K
-
-_UDF_ITEM = "ROADMAP queue 1, item 9c 'Spark functions, UDFs, HyperLogLog'"
-
 
 @dataclasses.dataclass
 class AggSpec:
@@ -75,12 +73,6 @@ DENSE_UNSUPPORTED = frozenset({"bit_and", "bit_or", "bit_xor", "nth_value"})
 # bucket (reference: first/last/nth accumulators honor insertion order)
 _INPUT_ORDER = frozenset({"first_value", "last_value", "any_value",
                           "nth_value"})
-
-
-def udf_error(fname: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"aggregate UDF {fname!r} is not ported to datafusion_tpu_torch yet "
-        f"({_UDF_ITEM})")
 
 
 def order_arg_of(spec: "AggSpec"):
@@ -305,22 +297,6 @@ class SortedSegments:
         return K.segment_max(values, self.seg, mask, self.G)
 
 
-def _segmented_scan(op, is_start: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan of an associative `op` that restarts at every
-    is_start row: the reference's associative_scan over
-    (flag, value) -> (af | bf, where(bf, bv, op(av, bv))), as log2(n)
-    doubling steps."""
-    f, v = is_start, values
-    n = v.shape[0]
-    s = 1
-    while s < n:
-        bf, bv = f[s:], v[s:]
-        v = torch.cat([v[:s], torch.where(bf, bv, op(v[:-s], bv))])
-        f = torch.cat([f[:s], f[:-s] | bf])
-        s *= 2
-    return v
-
-
 def phase_reduce(
     sg: Sequence[DeviceColumn],
     sa: Sequence[DeviceColumn],
@@ -515,7 +491,7 @@ def _reduce_one(spec, sa, sf, ssel, seg, is_start, distinct_start, G,
                      "bit_or": (0, torch.bitwise_or),
                      "bit_xor": (0, torch.bitwise_xor)}[f]
         z = torch.where(mask, x, torch.full_like(x, ident))
-        scanned = _segmented_scan(op, is_start, z)
+        scanned = K.segmented_scan(lambda a, b: [op(a[0], b[0])], is_start, [z])[0]
         if ss is not None:
             ends = ss.ends
         elif G == 1:
@@ -582,10 +558,29 @@ def _reduce_one(spec, sa, sf, ssel, seg, is_start, distinct_start, G,
     if f.startswith("regr_") or f in ("corr", "covar", "covar_pop", "covar_samp"):
         return _two_arg(spec, sa, mask, seg, G, out_sel)
 
-    from ..expr.udf import active_registry
+    from ..expr.udf import active_registry, segmented_monoid_reduce, udf_input_array
 
-    if active_registry().aggregate(f) is not None:
-        raise udf_error(f)
+    udaf = active_registry().aggregate(f)
+    if udaf is not None:
+        if spec.distinct:
+            mask = dmark()
+        x = udf_input_array(arg)
+        if ss is not None:
+            ends = ss.ends
+        elif G == 1:
+            # global aggregate: one segment, masked rows carry the identity,
+            # so the scan value at the last slot is the full reduction
+            ends = torch.full((1,), x.shape[0] - 1, dtype=torch.int64, device=dev)
+        else:
+            raise PlanError(f"UDAF {f!r} requires the sorted aggregation path")
+        vals = segmented_monoid_reduce(udaf, x, mask, is_start, ends)
+        cnt = SCNT(mask)
+        validity = ((cnt > 0) & out_sel) if udaf.nullable else None
+        if udaf.return_type.is_decimal:
+            vals = torch.round(vals * (10.0 ** udaf.return_type.scale)).to(torch.int64)
+        else:
+            vals = vals.to(torch_dtype(udaf.return_type))
+        return DeviceColumn(vals, validity, udaf.return_type)
     raise PlanError(f"aggregate function {f!r} not implemented")
 
 

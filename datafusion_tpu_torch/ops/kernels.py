@@ -14,7 +14,10 @@ ops:
   (build side sorted by id, probes located with `torch.searchsorted`) and
   `join_expand` (output slot -> (probe row, build row));
 * `hash64` -- a 64-bit hash per row over several columns (the grace join's
-  partitioning, physical/chunked.py).
+  partitioning, physical/chunked.py);
+* `segmented_scan` -- an inclusive scan of any associative combine that
+  restarts at flagged rows (torch has no associative_scan): bitwise
+  aggregates, window min/max, aggregate and window UDFs.
 
 Every sort is stable (`torch.sort(..., stable=True)`), as every reference
 sort is. Segment ids at or beyond the segment count are dropped, as
@@ -231,6 +234,29 @@ def segments_from_sorted_keys(
     seg = torch.where(sorted_sel, seg, n - 1)  # park dead rows on last slot
     num_groups = is_start.sum(dtype=torch.int32)
     return seg.to(torch.int32), is_start, num_groups
+
+
+def segmented_scan(combine, flags: torch.Tensor, leaves: List[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+    """Inclusive scan of an associative `combine` (two lists of state
+    leaves, earlier rows first, to one list) that restarts at every flagged
+    row: the reference's associative_scan over (flag, state) with the
+    operator (af | bf, where(bf, b, combine(a, b))), as ceil(log2 n)
+    Hillis-Steele passes; each pass's temporaries are freed before the
+    next."""
+    n = flags.shape[0]
+    f = flags
+    s = 1
+    while s < n:
+        b = [l[s:] for l in leaves]
+        merged = combine([l[:-s] for l in leaves], b)
+        bf = f[s:]
+        leaves = [torch.cat([l[:s], torch.where(bf, bl, m)])
+                  for l, bl, m in zip(leaves, b, merged)]
+        f = torch.cat([f[:s], f[:-s] | bf])
+        del b, merged, bf
+        s *= 2
+    return leaves
 
 
 def _sum_dtype(dtype: torch.dtype) -> torch.dtype:

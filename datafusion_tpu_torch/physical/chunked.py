@@ -972,7 +972,6 @@ class ChunkedQuery:
 
     # -- aggregation -----------------------------------------------------
     def _stream_aggregate(self, p: P.AggregateExec, ctx) -> Iterator[DeviceRelation]:
-        p._check_ported()
         chunks = self._stream(p.input, ctx)
         first = next(chunks, None)
         if first is None:

@@ -45,8 +45,6 @@ from ..expr import nodes as E
 from ..expr.typing import arith_result
 from ..utils import dates as DU
 
-_UDF_ITEM = "ROADMAP queue 1, item 9c 'Spark functions, UDFs, HyperLogLog'"
-
 # Host work over string dictionaries runs once per dictionary, not once per
 # execution: merges, LIKE and IN-list tables, substring remaps, literal
 # dictionaries and literal positions are kept in one bounded LRU keyed by the
@@ -137,11 +135,6 @@ def hold_tables(sink: Optional[list]) -> Optional[list]:
     global _HOLD
     prev, _HOLD = _HOLD, sink
     return prev
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to datafusion_tpu_torch yet ({_UDF_ITEM})")
 
 
 def merge_dictionaries(a: Dictionary, b: Dictionary) -> DictionaryWork:
@@ -604,7 +597,11 @@ def _literal_column(e: E.Literal, capacity: int, device) -> DeviceColumn:
             else int(np.datetime64(str(e.value), "us").astype(np.int64))
         return DeviceColumn(full(int(v), torch.int64), None, t)
     b = (int(e.value), int(e.value)) if t.is_integer else None
-    return DeviceColumn(full(e.value, torch_dtype(t)), None, t, bounds=b)
+    value = e.value
+    if t.is_integer:  # past the type's range it wraps, as numpy's cast does
+        bits = 8 * np.dtype(t.np_dtype()).itemsize
+        value = (int(value) + (1 << (bits - 1))) % (1 << bits) - (1 << (bits - 1))
+    return DeviceColumn(full(value, torch_dtype(t)), None, t, bounds=b)
 
 
 _CMP = {
@@ -863,9 +860,6 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
 
             return nested.eval_lambda_function(e.fname, e.args, rel,
                                                infer(e, schema)[0])
-        if active_registry().scalar(e.fname) is not None:
-            raise _not_ported(f"scalar UDF {e.fname!r}")
-
         if e.fname == "to_char" and len(e.args) == 2:
             src = eval_expr(e.args[0], rel)
             if src.dtype.is_string:
@@ -874,9 +868,14 @@ def eval_expr(e: E.Expr, rel: DeviceRelation) -> DeviceColumn:
             if not isinstance(fmt, E.Literal):
                 raise PlanError("to_char format must be a literal")
             return string_cast_column(e, src, rel, fmt=str(fmt.value))
+        args = [eval_expr(a, rel) for a in e.args]
+        udf = active_registry().scalar(e.fname)
+        if udf is not None:
+            from ..expr.udf import eval_scalar_udf
+
+            return eval_scalar_udf(udf, args)
         out_t, _ = infer(e, schema)
-        return F.eval_scalar_function(e.fname, [eval_expr(a, rel) for a in e.args],
-                                      e.args, out_t, cap, rel.device)
+        return F.eval_scalar_function(e.fname, args, e.args, out_t, cap, rel.device)
     if isinstance(e, E.InList):
         c = eval_expr(e.expr, rel)
         if _is_text_dict(c) and e.values and all(

@@ -1,9 +1,10 @@
 """Scalar functions: typing and device evaluation.
 
 Port of datafusion_tpu/physical/functions.py: every scalar function of the
-reference but the Spark-semantics library (spark/, item 9c), which a
-session of this package cannot enable yet. The nested family (list, struct
-and map functions) is typed and evaluated by physical/nested.py.
+reference. The nested family (list, struct and map functions) is typed and
+evaluated by physical/nested.py, and in a session that enabled the Spark
+library (`enable_spark_functions`) its names are typed and evaluated by
+spark/functions.py.
 
 Dispatch is a name table (_IMPLS): each name maps to one small function per
 family (date parts, date_trunc, the clock, numeric unary, string transforms,
@@ -108,12 +109,29 @@ def arrow_type_name(dt: T.DataType) -> str:
     }.get(k, k.value)
 
 
+def _spark_active(fname: str) -> bool:
+    """True when the session opted into Spark-semantics functions
+    (ctx.enable_spark_functions(); reference: datafusion-spark crate
+    registration) and `fname` is one of them."""
+    from ..expr.udf import active_registry
+
+    if not getattr(active_registry(), "spark", False):
+        return False
+    from ..spark import SPARK_FNS
+
+    return fname in SPARK_FNS
+
+
 def scalar_function_type(e: E.ScalarFunction, schema: Schema) -> Tuple[T.DataType, bool]:
     from ..expr.typing import infer
 
     f = e.fname
     if f in N.NESTED_FNS:
         return N.nested_function_type(e, schema)
+    if _spark_active(f):
+        from ..spark import functions as SK
+
+        return SK.spark_function_type(e, schema)
     argt = [infer(a, schema) for a in e.args]
     nullable = any(n for _, n in argt)
     if f in ("date_part", "extract", "year", "month", "day"):
@@ -1249,6 +1267,11 @@ def eval_scalar_function(fname: str, args: List[DeviceColumn],
     without arguments has no column to take it from)."""
     if fname in N.NESTED_FNS:
         return N.eval_nested_function(fname, args, arg_exprs, out_dtype, capacity,
+                                      device)
+    if _spark_active(fname):
+        from ..spark import functions as SK
+
+        return SK.eval_spark_function(fname, args, arg_exprs, out_dtype, capacity,
                                       device)
     impl = _IMPLS.get(fname)
     if impl is None:

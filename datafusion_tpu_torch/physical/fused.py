@@ -27,7 +27,11 @@ Two-phase adaptive execution, one FusedQuery per DataFrame:
      each call.
 A raised flag sends the query back to discovery (capacities only grow), and
 the next execute() builds the steady state anew. A plan holding an operator
-the walker does not know keeps per-operator execution. A failure while
+the walker does not know keeps per-operator execution. A plan that calls a
+host function (a scalar from register_async_udf or a plugin: the reference
+calls it from inside its program through jax.pure_callback, which a CUDA
+graph cannot hold) is marked before capture, and its steady state is the
+walker run eagerly on the card, as on the CPU. Any other failure while
 capturing (a host sync or a pageable copy in the steady state) raises: it is
 a bug, never turned into eager execution.
 
@@ -183,7 +187,7 @@ class FusedQuery:
         """(steady state, (relation, overflow) of its first run)."""
         t0 = time.perf_counter()
         fn = self._steady_fn()
-        if inputs and inputs[0].device.type == "cuda":
+        if inputs and inputs[0].device.type == "cuda" and not calls_host(self.plan):
             steady = _Graph(fn, inputs)
         else:
             steady = _Eager(fn, inputs)
@@ -211,6 +215,37 @@ class FusedQuery:
             return rel, flag
 
         return fn
+
+
+def calls_host(plan: P.PhysicalPlan) -> bool:
+    """Whether an expression of the plan calls a host function (a scalar
+    UDF whose body is an expr.udf.HostCall) under the active registry."""
+    from ..expr import nodes as E
+    from ..expr.udf import active_registry, is_host_call
+
+    reg = active_registry()
+
+    def expr_calls(e) -> bool:
+        if isinstance(e, E.ScalarFunction):
+            udf = reg.scalar(e.fname)
+            if udf is not None and is_host_call(udf):
+                return True
+        return any(expr_calls(c) for c in e.children())
+
+    def held(v) -> bool:
+        if isinstance(v, E.Expr):
+            return expr_calls(v)
+        if isinstance(v, (list, tuple)):
+            return any(held(x) for x in v)
+        return False
+
+    stack = [plan]
+    while stack:
+        p = stack.pop()
+        if any(held(v) for v in vars(p).values()):
+            return True
+        stack.extend(p.children())
+    return False
 
 
 def _leaf_key(inputs) -> tuple:
@@ -379,7 +414,6 @@ def apply_aggregate(p: P.AggregateExec, rel: DeviceRelation,
     list width discovery recorded; a sorted aggregate flags more groups than
     that, and array_agg / string_agg a list longer than the width (the live
     count for the global case, the largest group for the grouped one)."""
-    p._check_ported()
     width = getattr(p, "_last_width", None) if p._has_array_agg() else 0
     if width is None:
         raise ExecutionError("list width not discovered")

@@ -370,15 +370,6 @@ class AggregateExec(PhysicalPlan):
             out.append(a)
         return out
 
-    def _check_ported(self) -> None:
-        """Aggregate UDFs, whose accumulators are not ported, raise before
-        any device work (ROADMAP queue 1, item 9c)."""
-        from ..expr.udf import active_registry
-
-        for a in self._agg_fns():
-            if active_registry().aggregate(a.fname) is not None:
-                raise G.udf_error(a.fname)
-
     def _has_array_agg(self) -> bool:
         return any(a.fname in ("array_agg", "string_agg") for a in self._agg_fns())
 
@@ -477,9 +468,16 @@ class AggregateExec(PhysicalPlan):
                                    specs), specs)
 
     def _dense_eligible(self) -> bool:
+        """The dense and global-dense paths take no DISTINCT, order-sensitive
+        or scan-based aggregate, and no aggregate UDF (its monoid scan needs
+        the sorted path's segments): the kernel is never handed one."""
+        from ..expr.udf import active_registry
+
+        reg = active_registry()
         return not any(a.distinct or a.fname in G._ORDER_SENSITIVE
                        or a.fname in G.DENSE_UNSUPPORTED
                        or getattr(a, "order_by", ())
+                       or reg.aggregate(a.fname) is not None
                        for a in self._agg_fns())
 
     def _global_dense_ok(self, rel: DeviceRelation) -> bool:
@@ -688,13 +686,11 @@ class AggregateExec(PhysicalPlan):
         return DeviceRelation(self.schema, tuple(cols), out_sel)
 
     def execute(self, ctx: ExecContext) -> DeviceRelation:
-        self._check_ported()
         return self.execute_rel(ctx, self.input.execute(ctx))
 
     def execute_rel(self, ctx: ExecContext, rel: DeviceRelation) -> DeviceRelation:
         """Aggregate an already-computed input relation (execute(), and the
         chunked executor's materialized fallback)."""
-        self._check_ported()
         if not self.group_exprs:
             if self._has_array_agg():
                 self._widen(int(rel.sel.sum()))  # one host read: the list width

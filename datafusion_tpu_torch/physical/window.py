@@ -130,20 +130,6 @@ def _first_where(k: torch.Tensor, target: torch.Tensor, lo0: torch.Tensor,
     return lo
 
 
-def _seg_scan(x: torch.Tensor, seg_start: torch.Tensor, op) -> torch.Tensor:
-    """Inclusive running op (torch.maximum / torch.minimum) resetting at
-    segment starts: a log-step doubling scan of the reference's associative
-    combine (flag_a | flag_b, b if flag_b else op(a, b))."""
-    n = x.shape[0]
-    flag, val = seg_start, x
-    d = 1
-    while d < n:
-        val = torch.cat([val[:d], torch.where(flag[d:], val[d:], op(val[:-d], val[d:]))])
-        flag = torch.cat([flag[:d], flag[d:] | flag[:-d]])
-        d *= 2
-    return val
-
-
 def _sort_keys(pcols, ocols, order_by):
     keys = [(c.data, c.validity, False, False, c.sort_bounds()) for c in pcols]
     keys += [(c.data, c.validity, not s.asc, s.nulls_first, c.sort_bounds())
@@ -546,7 +532,8 @@ class WindowExec(PhysicalPlan):
                 xm = torch.where(avalid, x, torch.full_like(x, ident))
                 if has_order:
                     op = torch.minimum if f == "min" else torch.maximum
-                    vals = _seg_scan(xm, seg_start, op)[pe]
+                    vals = K.segmented_scan(lambda a, b: [op(a[0], b[0])],
+                                            seg_start, [xm])[0][pe]
                     nonzero = _seg_cumsum(avalid.to(torch.int64), seg_start)[pe] > 0
                 else:
                     red = K.segment_min if f == "min" else K.segment_max
@@ -573,8 +560,18 @@ class WindowExec(PhysicalPlan):
         reg = active_registry()
         udwf = reg.window(f) or reg.aggregate(f)
         if udwf is not None:
-            # raises NotImplementedError naming its ROADMAP item
-            running_monoid_scan(udwf, udf_input_array(argc), avalid, seg_start, pe)
+            xin = udf_input_array(
+                DeviceColumn(x, None, argc.dtype, argc.dictionary)
+                if argc is not None else DeviceColumn(x, None, T.INT64))
+            # the default frame: the partition's start to the current row's
+            # last peer (RANGE), or to the partition's end without ORDER BY
+            idx = pe if has_order else torch.clamp(
+                iota - row_in_part + my_count - 1, 0, cap - 1)
+            vals = running_monoid_scan(udwf, xin, avalid, seg_start, idx)
+            nonzero = _seg_cumsum(avalid.to(torch.int64), seg_start)[idx] > 0
+            validity = (nonzero & ssel) if udwf.nullable else None
+            return DeviceColumn(vals.to(torch_dtype(udwf.return_type)), validity,
+                                udwf.return_type)
         raise PlanError(f"window function {f!r} not implemented")
 
     def _frame_agg(self, f, w, argc, x, avalid, ssel, fs, fe, fempty, out_t):

@@ -145,8 +145,9 @@ def test_builtin_names_are_the_reference_less_nested():
 
 
 def test_information_schema_routines_match_jax_less_nested(sessions):
-    """The same rows as the reference's view (the Spark functions, item 9c,
-    are listed by a default session on neither side)."""
+    """The same rows as the reference's view (neither side lists the Spark
+    functions; tests/test_torch_spark.py holds a Spark-enabled session's
+    view equal too)."""
     jctx, pctx = sessions
     sql = "SELECT routine_name, routine_type FROM information_schema.routines"
 

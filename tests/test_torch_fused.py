@@ -458,3 +458,64 @@ def test_new_scan_tensors_cause_a_recapture():
     got = df.collect().to_pydict()
     assert got == {"k": [1, 2, 3], "sv": [5, 2, 3]} != r[2]
     assert df._fused_query()._fused is not graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["scalar", "udaf_grouped", "udaf_global", "window"])
+def test_udf_family_captures_without_a_host_sync(family):
+    """Each user-function family of testing/udf_cases.py captured under
+    set_sync_debug_mode("error") and replayed, equal to the CPU (floats to
+    rtol 1e-9: the monoid scans)."""
+    from datafusion_tpu_torch.expr import udf as U
+    from datafusion_tpu_torch.physical.fused import _Graph
+    from datafusion_tpu_torch.testing import udf_cases as UC
+
+    dev = _card()
+    ctx, cpu = SessionContext(device=dev), SessionContext(device="cpu")
+    for c in (ctx, cpu):
+        for name, cols in UC.tables().items():
+            c.register_table(name, cols)
+        UC.register(c)
+    sql = UC.FAMILIES[family]
+    want = cpu.sql(sql).to_pandas()
+    df = ctx.sql(sql)
+    df.collect()
+    fq = df._fused_query()
+    with U.activate(ctx.functions):
+        inputs = tuple(leaf.execute(ctx.exec_context()) for leaf in fq.leaves)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph = _Graph(fq._steady_fn(), inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rel, overflow = graph.run()
+    assert not overflow
+    pd.testing.assert_frame_equal(to_host(rel).to_pandas(), want, rtol=1e-9, atol=1e-9)
+    assert isinstance([df.collect() for _ in range(2)] and fq._fused, _Graph)
+
+
+@pytest.mark.cuda
+def test_udf_host_calls_run_eagerly_and_a_syncing_udf_is_refused():
+    """A host function's steady state is the walker run eagerly on the
+    card; a UDF that reads a device value on the host (`.item()`) cannot be
+    captured."""
+    from datafusion_tpu_torch.physical.fused import _Eager
+    from datafusion_tpu_torch.testing import udf_cases as UC
+
+    ctx = SessionContext(device=_card())
+    for name, cols in UC.tables().items():
+        ctx.register_table(name, cols)
+    UC.register(ctx)
+    df = ctx.sql(UC.CASES["async_plain"])
+    assert [df.collect().to_pydict() for _ in range(3)] == [{"s": [26.0]}] * 3
+    assert isinstance(df._fused_query()._fused, _Eager)
+    df = ctx.sql(UC.SYNCING)
+    df.collect()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            df.collect()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -29,7 +29,8 @@ VERBATIM = [
     "models/clickbench/datagen.py", "models/clickbench/queries.py",
     "testing/__init__.py", "testing/slt.py", "io/__init__.py",
     "io/object_store.py", "runtime/cache.py", "io/pageindex.py", "io/bloom.py",
-    "io/parquet.py", "io/avro.py",
+    "io/parquet.py", "io/avro.py", "spark/javafmt.py", "interchange/ffi.py",
+    "native/plugin.h", "native/example_plugin.cpp",
 ]
 # copied byte for byte, without a header
 VERBATIM_DATA = sorted(str(p.relative_to(ROOT / "datafusion_tpu"))
@@ -68,7 +69,7 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 @pytest.mark.parametrize("path", VERBATIM)
 def test_verbatim_copy_equals_original(path):
     header, body = (PORT / path).read_text().split("\n", 1)
-    comment = "//" if path.endswith(".cpp") else "#"
+    comment = "//" if path.endswith((".cpp", ".h")) else "#"
     assert header == (f"{comment} Verbatim copy of datafusion_tpu/{path}; host-only, "
                       "kept in step with the original.")
     assert body == (ROOT / "datafusion_tpu" / path).read_text()
@@ -131,6 +132,27 @@ OUT_OF_CORE = ["datafusion_tpu_torch.physical.chunked", "datafusion_tpu_torch.ru
 
 @pytest.mark.parametrize("module", OUT_OF_CORE)
 def test_out_of_core_modules_import_no_jax(module):
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'datafusion_tpu' or m.startswith('datafusion_tpu.'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+# the slice of user-defined functions, the Spark library and the DataFrame
+# API: its modules, each imported alone in a fresh process
+UDF_SLICE = ["datafusion_tpu_torch.expr.udf", "datafusion_tpu_torch.spark",
+             "datafusion_tpu_torch.spark.functions", "datafusion_tpu_torch.spark.javafmt",
+             "datafusion_tpu_torch.interchange", "datafusion_tpu_torch.interchange.ffi",
+             "datafusion_tpu_torch.testing.udf_cases", "datafusion_tpu_torch.context",
+             "chip_smoke"]
+
+
+@pytest.mark.parametrize("module", UDF_SLICE)
+def test_udf_slice_modules_import_no_jax(module):
     code = ("import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--sf 1] [--h2o-rows 10000000] [--tpcds-sf 24]
                           [--clickbench-rows 10000000] [--repeat 3]
-                          [--only outofcore|udf]
+                          [--rec-nodes 1048576] [--seed 0]
+                          [--only outofcore|udf|interchange]
 
 Run from the repository root on a machine with one CUDA card and nvcc. In
 order, it:
@@ -89,6 +90,26 @@ order, it:
      against a numpy/hashlib oracle; U5, an async UDF over every row,
      whose steady state must run eagerly on the card (its host syncs, its
      collect() timed, one profile, and the host call alone timed);
+ 8c. recursive queries and plan interchange (run_interchange), over the
+     TPC-H tables already on the card: all 22 queries encoded as Substrait
+     (to_substrait, proto3 JSON) and as DataFusion LogicalPlanNode bytes
+     (to_proto; the copied codecs refuse the 12 queries of NOT_CARRIED,
+     which must be exactly those), decoded with from_substrait /
+     from_proto and collected through the checks of 7 (a captured graph,
+     at most 2 host syncs per warm collect()), each answer equal to the oracle, with the encode and
+     decode ms, the JSON or protobuf length and the decoded fused collect()
+     timed in turns with the SQL query's; all 22 physical plans as
+     PhysicalPlanNode bytes and back, executed operator by operator, each
+     equal to the oracle; Q1 and Q6 in each format must call the kernel
+     with the SQL query's G and route, each call held against the plain
+     version bit for bit; without google.protobuf only the Substrait half
+     runs, and a line says so; then every record of the reference's
+     cte.slt on the card and on the CPU with the same outcome; R1 and R2
+     (testing/recursive_cases.py) over a random hierarchy of --rec-nodes
+     nodes from --seed: three collect()s equal to a numpy level-by-level
+     oracle, per-operator execution, the iteration count, host syncs per
+     iteration, the collect() median, one profile and the peak bytes; a
+     runaway recursion must stop at the cap of 100 iterations;
   9. takes the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
      K = 100, seed 42; it and the hits table of 12 are generated in two
      worker processes started with the run, beside phases 1-8) and runs
@@ -181,7 +202,9 @@ it runs 2 (the build), then 14 alone over TPC-H at --sf, with the oracle's
 answers and the Parquet files made as the full run has them, and ends with
 a {"only": ...} line instead of 15: a quicker run for work on that phase.
 With `--only udf` it runs 2, TPC-H Q1 and Q6 at --sf as in 4 (the main
-path whose kernel calls U1 and U2 must repeat), then 8b alone.
+path whose kernel calls U1 and U2 must repeat), then 8b alone; with `--only
+interchange`, 2, Q1 and Q6 as in 4 and the oracle's answers to the 22
+queries, then 8c alone.
 """
 from __future__ import annotations
 
@@ -239,6 +262,7 @@ from datafusion_tpu_torch.testing.nested_cases import ERRORS as NESTED_ERRORS
 from datafusion_tpu_torch.testing.nested_cases import FAMILIES as NESTED_FAMILIES
 from datafusion_tpu_torch.testing.nested_cases import TPCH as NESTED_TPCH
 from datafusion_tpu_torch.testing.nested_cases import tables as nested_tables
+from datafusion_tpu_torch.testing import recursive_cases as RC
 from datafusion_tpu_torch.testing import slt as port_slt
 from datafusion_tpu_torch.testing import udf_cases as UC
 
@@ -2216,10 +2240,11 @@ def _raw(table: Table, name: str) -> np.ndarray:
     return np.asarray(table.column(name).data)
 
 
-def udf_kernel_calls(label: str, calls: list, want: list, timing) -> list:
-    """The dense kernel's calls of a U query: the same G and route as the
-    SQL query's (`want`), each held against the plain version bit for bit,
-    and timed as in 5 at a shape not seen before."""
+def same_kernel_calls(label: str, calls: list, want: list, timing) -> list:
+    """The dense kernel's calls of a query the SQL one stands for (a U
+    query, a decoded plan): the same G and route as the SQL query's
+    (`want`), each held against the plain version bit for bit, and timed as
+    in 5 at a shape not seen before."""
     shapes, iters, flush, baseline, seen = timing
 
     def routes(cs):
@@ -2388,7 +2413,7 @@ def run_udf(ctx, tables: dict, refs: dict, main_path: dict, sf: float, repeat: i
         n = DA.launches
         same(got)
         launches += n
-        calls = udf_kernel_calls(f"udf_{label}", rec.calls, main_path[qid][1], timing)
+        calls = same_kernel_calls(f"udf_{label}", rec.calls, main_path[qid][1], timing)
         torch.cuda.reset_peak_memory_stats()
         out = fused_query(uctx, f"udf_{label}", make, same, repeat,
                           discovered=(df, ms, n))
@@ -2430,6 +2455,254 @@ def run_udf(ctx, tables: dict, refs: dict, main_path: dict, sf: float, repeat: i
     emit({"phase": "udf", "launches": launches, "s": time.perf_counter() - t0,
           "peak_allocated": max(peaks.values()), "peak_allocated_by_query": peaks,
           "memory_reserved": torch.cuda.memory_reserved()})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 8c. recursive queries and plan interchange
+# ---------------------------------------------------------------------------
+
+INTERCHANGE_REPEAT = 3
+CTE_SLT = os.path.join(SLT_PORTED, "cte.slt")
+# TPC-H queries that a logical format cannot carry: the producers and
+# consumers are verbatim copies of the JAX package's, which refuse subquery
+# expressions and lose the aliases of a self-joined table, with the same
+# PlanError in both packages (tests/test_torch_interchange.py)
+NOT_CARRIED = (2, 4, 7, 8, 11, 15, 16, 17, 18, 20, 21, 22)
+
+
+def have_protobuf() -> bool:
+    """Whether google.protobuf imports: the DataFusion protobuf formats need
+    it, Substrait (proto3 JSON) does not."""
+    try:
+        import google.protobuf  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def decode_logical(ctx, df, fmt: str) -> dict:
+    """df encoded in `fmt` (to_substrait, then json.dumps, or to_proto) and
+    decoded against ctx's catalog (from_substrait / from_proto), then
+    planned: {"df": the decoded DataFrame, or None with "refused": the
+    codec's PlanError; "encode_ms", "decode_ms", "length": JSON characters
+    or protobuf bytes}."""
+    from datafusion_tpu_torch.common.errors import PlanError
+
+    try:
+        t0 = time.perf_counter()
+        payload = json.dumps(df.to_substrait()) if fmt == "substrait" else df.to_proto()
+        t1 = time.perf_counter()
+        back = ctx.from_substrait(payload) if fmt == "substrait" else ctx.from_proto(payload)
+        t2 = time.perf_counter()
+        back.physical_plan()  # names bind while planning
+    except PlanError as e:
+        return {"df": None, "refused": str(e)[:120]}
+    return {"df": back, "encode_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
+            "length": len(payload)}
+
+
+def collect_in_turns(frames: dict, repeat: int) -> dict:
+    """Host ms of collect() of each DataFrame in `frames` (each already in its
+    steady state), in turns: forward, then backward, `repeat` rounds."""
+    names = list(frames)
+    ms = {name: [] for name in names}
+    for r in range(repeat):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            frames[name].collect()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: {"median": statistics.median(v), "ms": v} for name, v in ms.items()}
+
+
+def run_logical_interchange(ctx, refs: dict, main_path: dict, sf: float, repeat: int,
+                            formats: tuple, timing) -> int:
+    """All 22 TPC-H queries through each logical format: encoded, decoded,
+    then collected as in 7 (discovery with the kernel's calls recorded, the
+    capture and a replay, a replay; a captured graph; at most 2 host syncs
+    per warm collect()), each answer equal to the oracle, and the decoded
+    fused collect() timed in turns with the SQL query's. Q1 and Q6 must call
+    the kernel as the SQL queries do. Returns the kernel's launches in the
+    discovery runs."""
+    launches = 0
+    carried = {fmt: [] for fmt in formats}
+    for qid in range(1, 23):
+        def same(got, qid=qid):
+            diff = frames_diff(got.to_pandas(), refs[qid], ordered=qid in LIMIT_QUERIES)
+            check(diff is None, f"decoded TPC-H Q{qid} differs from the oracle: {diff}")
+
+        sql_df = ctx.sql(query(qid, sf))
+        frames = {"sql": sql_df}
+        row = {"interchange_query": f"q{qid}"}
+        for fmt in formats:
+            dec = decode_logical(ctx, sql_df, fmt)
+            back = dec.pop("df")
+            if back is None:
+                row[fmt] = {"carried": False, **dec}
+                continue
+            carried[fmt].append(qid)
+            DA.reset_launches()
+            with RecordKernelInputs() as rec:
+                t0 = time.perf_counter()
+                got = back.collect()
+                ms = (time.perf_counter() - t0) * 1e3
+            n = DA.launches
+            same(got)
+            launches += n
+            label = f"{fmt}_q{qid}"
+            calls = (same_kernel_calls(label, rec.calls, main_path[qid][1], timing)
+                     if qid in (1, 6) else None)
+            out = fused_query(ctx, label, lambda back=back: back, same, repeat,
+                              timed=False, discovered=(back, ms, n))
+            row[fmt] = {"carried": True, **dec, "host_syncs": out["host_syncs"]["fused"],
+                        "discovery_ms": ms, "capture_ms": out["capture_ms"],
+                        "dgs_launches": n, "kernel_calls": calls}
+            frames[fmt] = back
+        sql_df.collect()
+        sql_df.collect()  # discovery, then the capture: all in their steady state
+        row["fused_collect_ms"] = collect_in_turns(frames, repeat)
+        emit(row)
+        del frames, sql_df, back
+        torch.cuda.empty_cache()
+    for fmt in formats:
+        missing = tuple(q for q in range(1, 23) if q not in carried[fmt])
+        check(missing == NOT_CARRIED,
+              f"{fmt}: queries not carried {missing}, expected {NOT_CARRIED}")
+    emit({"phase": "logical_interchange", "carried": carried, "launches": launches})
+    return launches
+
+
+def run_physical_interchange(ctx, refs: dict, main_path: dict, sf: float,
+                             timing) -> int:
+    """All 22 TPC-H physical plans: PhysicalPlanNode bytes and back, executed
+    operator by operator and copied to the host, each answer equal to the
+    oracle; Q1 and Q6 must call the kernel as the SQL queries do. Returns the
+    kernel's launches."""
+    from datafusion_tpu_torch.interchange.dfproto_physical import (
+        physical_plan_from_proto_bytes, physical_plan_to_proto_bytes)
+
+    launches = 0
+    for qid in range(1, 23):
+        plan = ctx.sql(query(qid, sf)).physical_plan()
+        t0 = time.perf_counter()
+        data = physical_plan_to_proto_bytes(plan, ctx.catalog)
+        t1 = time.perf_counter()
+        back = physical_plan_from_proto_bytes(data, ctx.catalog)
+        t2 = time.perf_counter()
+        DA.reset_launches()
+        with RecordKernelInputs() as rec:
+            got = to_host(back.execute(ctx.exec_context()))
+        t3 = time.perf_counter()
+        n = DA.launches
+        launches += n
+        diff = frames_diff(got.to_pandas(), refs[qid], ordered=qid in LIMIT_QUERIES)
+        check(diff is None, f"physical TPC-H Q{qid} differs from the oracle: {diff}")
+        row = {"physical_query": f"q{qid}", "bytes": len(data),
+               "encode_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
+               "execute_ms": (t3 - t2) * 1e3, "dgs_launches": n, "matches_oracle": True}
+        if qid in (1, 6):
+            row["kernel_calls"] = same_kernel_calls(f"physical_q{qid}", rec.calls,
+                                                    main_path[qid][1], timing)
+        emit(row)
+    return launches
+
+
+def run_cte_slt_card_vs_cpu() -> None:
+    """Every record of the reference's cte.slt on a card session and a CPU
+    session: the same outcome; and the whole file against its golden rows
+    on each, with the same failures (none on the CPU)."""
+    t0 = time.perf_counter()
+    with open(CTE_SLT) as f:
+        recs = port_slt.parse_slt(f.read())
+    card, cpu = SessionContext(), SessionContext(device="cpu")
+    for rec in recs:
+        got, want = _slt_outcome(card, rec), _slt_outcome(cpu, rec)
+        check(got == want, f"cte.slt:{rec.line}: the card's outcome {got} differs "
+                           f"from the CPU's {want}")
+    golden = [[f.line for f in port_slt.run_slt_file(CTE_SLT, ctx=ctx)]
+              for ctx in (SessionContext(), SessionContext(device="cpu"))]
+    check(golden[0] == golden[1], f"cte.slt: golden failures {golden[0]} on the card, "
+                                  f"{golden[1]} on the CPU")
+    emit({"phase": "cte_slt_card_vs_cpu", "records": len(recs),
+          "golden_failures": golden[0], "card_equals_cpu": True,
+          "s": time.perf_counter() - t0})
+
+
+def run_recursive(nodes: int, seed: int, repeat: int) -> None:
+    """R1 and R2 of testing/recursive_cases.py over a `nodes`-node hierarchy
+    on the card: three collect()s each equal to the numpy oracle, the
+    iteration count, per-operator execution (no steady state), the host
+    syncs of one collect() and per iteration, the collect() median of
+    `repeat`, one profile and the peak bytes allocated; then the runaway
+    recursion must stop at the cap."""
+    from datafusion_tpu_torch.common.errors import ExecutionError
+
+    t0 = time.perf_counter()
+    edges = RC.hierarchy(nodes, seed)
+    oracle = RC.oracle(edges)
+    ctx = SessionContext()
+    ctx.register_table("edges", edges)
+    emit({"hierarchy_nodes": nodes, "seed": seed, "levels": len(oracle["R1"]["n"]),
+          "widest_level": max(oracle["R1"]["n"]), "setup_s": time.perf_counter() - t0})
+    for name in ("R1", "R2"):
+        df = ctx.sql(getattr(RC, name))
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        first = df.collect().to_pydict()
+        first_ms = (time.perf_counter() - t1) * 1e3
+        for got in (first, df.collect().to_pydict(), df.collect().to_pydict()):
+            check(got == oracle[name], f"{name} differs from the numpy oracle")
+        check(df._fused_query()._fused is False,
+              f"{name}: the recursive plan has a steady state")
+        (rq,) = [p for p in _plan_nodes(df) if isinstance(p, P.RecursiveQueryExec)]
+        check(rq.iterations == oracle["iterations"],
+              f"{name}: {rq.iterations} iterations, the oracle's {oracle['iterations']}")
+        syncs = host_syncs(df.collect)
+        ms = []
+        for _ in range(repeat):
+            t1 = time.perf_counter()
+            df.collect()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        prof = profile_call(f"recursive_{name}", df.collect)
+        emit(prof)
+        emit({"recursive_query": name, "iterations": rq.iterations,
+              "first_collect_ms": first_ms, "collect_ms_median": statistics.median(ms),
+              "collect_ms": ms, "host_syncs": syncs,
+              "host_syncs_per_iteration": syncs / rq.iterations,
+              "join_paths": join_paths(df), "busy_ms": prof["device_busy_ms"],
+              "idle_share": prof["device_idle_share"], "families": prof["families"],
+              "peak_allocated": torch.cuda.max_memory_allocated(),
+              "matches_oracle": True})
+    try:
+        ctx.sql(RC.RUNAWAY).collect()
+        capped = None
+    except ExecutionError as e:
+        capped = str(e)
+    check(capped is not None and "exceeded 100 iterations" in capped,
+          f"the runaway recursion was not capped: {capped}")
+    emit({"runaway": capped})
+
+
+def run_interchange(ctx, refs: dict, main_path: dict, sf: float, args, timing) -> int:
+    """The interchange phase: the logical formats (Substrait always; the
+    DataFusion protobuf ones when google.protobuf imports) and the physical
+    one over the TPC-H session already on the card, cte.slt card vs CPU, R1
+    and R2 over a hierarchy, the runaway cap. Returns the kernel's
+    launches in the decoded queries' discovery runs."""
+    t0 = time.perf_counter()
+    protobuf = have_protobuf()
+    if not protobuf:
+        emit({"protobuf": "absent: google.protobuf does not import, so only the "
+                          "Substrait half of the interchange phase runs"})
+    formats = ("substrait", "proto") if protobuf else ("substrait",)
+    repeat = min(args.repeat, INTERCHANGE_REPEAT)
+    launches = run_logical_interchange(ctx, refs, main_path, sf, repeat, formats, timing)
+    if protobuf:
+        launches += run_physical_interchange(ctx, refs, main_path, sf, timing)
+    run_cte_slt_card_vs_cpu()
+    run_recursive(args.rec_nodes, args.seed, repeat)
+    emit({"phase": "interchange", "protobuf": protobuf, "launches": launches,
+          "elapsed_s": time.perf_counter() - t0})
     return launches
 
 
@@ -3197,6 +3470,33 @@ def run_udf_only(args) -> int:
     return 0
 
 
+def run_interchange_only(args) -> int:
+    """`--only interchange`: the kernels built, TPC-H at --sf in a session on
+    the card, Q1 and Q6 through the main path (run_main_path: their kernel
+    calls, which the decoded Q1 and Q6 must repeat) and the oracle's answers
+    to the 22 queries, then run_interchange."""
+    t0 = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    cuda_build.build_all([DA.SOURCE, BASELINE])
+    baseline = baseline_call(cuda_build.load(BASELINE))
+    tables = generate_tpch(args.sf, cache=False)
+    ctx = SessionContext()
+    for name, table in tables.items():
+        ctx.register_table(name, table)
+    frames = oracle_tables(tables)
+    main_path = run_main_path(ctx, frames, args.sf)
+    refs = {q: ref_query(q, frames, args.sf) for q in range(1, 23)}
+    emit({"setup_s": time.perf_counter() - t0})
+    launches = run_interchange(ctx, refs, main_path, args.sf, args,
+                               ({}, args.iters, L2Flush(torch.device("cuda")), baseline,
+                                set()))
+    print(card_line(), flush=True)
+    emit({"only": "interchange", "launches": launches,
+          "total_s": time.perf_counter() - t0})
+    return 0
+
+
 def generate_table(kind: str, rows: int):
     """(the h2o groupby table or the ClickBench hits table of `rows` rows,
     the seconds it took), in a worker process."""
@@ -3222,7 +3522,11 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per kernel timing, each after an "
                          "L2 flush (the median is reported)")
-    ap.add_argument("--only", choices=("outofcore", "udf"),
+    ap.add_argument("--rec-nodes", type=int, default=1 << 20,
+                    help="nodes of the hierarchy the recursive queries walk")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the hierarchy the recursive queries walk")
+    ap.add_argument("--only", choices=("outofcore", "udf", "interchange"),
                     help="run the kernels' build and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3233,6 +3537,8 @@ def main() -> int:
         return run_outofcore_only(args)
     if args.only == "udf":
         return run_udf_only(args)
+    if args.only == "interchange":
+        return run_interchange_only(args)
     # the h2o and ClickBench tables take minutes of host time to generate:
     # two worker processes make them while the earlier phases run
     workers = multiprocessing.get_context("spawn").Pool(2)
@@ -3333,6 +3639,9 @@ def run(args, generated: dict) -> int:
                         min(args.repeat, UDF_REPEAT),
                         (shapes, args.iters, flush, baseline, seen))
     emit({"elapsed_s": time.perf_counter() - t_run, "after": "udf"})
+    launches += run_interchange(ctx, refs, main_path, args.sf, args,
+                                (shapes, args.iters, flush, baseline, seen))
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "interchange"})
 
     check_segment_extremes(dev)
     t0 = time.perf_counter()

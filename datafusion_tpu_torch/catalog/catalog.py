@@ -10,9 +10,8 @@ per device (and, for Parquet, per pruned scan). Out-of-core scans
 (`scan_chunks`) upload one capacity-bounded chunk at a time and go through
 neither cache: a chunked query holds one chunk of a table on the card, not
 the table. A StreamingTable is a (possibly unbounded) stream of batches.
-Not ported yet: the recursive-CTE work table, which raises
-NotImplementedError when the planner builds one (ROADMAP queue 1, item
-12)."""
+A WorkTable holds the previous step of a recursive CTE while
+RecursiveQueryExec runs its recursive arm."""
 from __future__ import annotations
 
 import os
@@ -188,14 +187,27 @@ class StreamingTable(TableProvider):
 
 
 class WorkTable(TableProvider):
-    """The recursive CTE's working table. Recursive queries are not ported
-    yet, so planning a `WITH RECURSIVE` stops here."""
+    """The recursive CTE's working table: RecursiveQueryExec binds the
+    previous iteration's device relation before each step (reference:
+    WorkTable, physical-plan/src/work_table.rs). Nothing is cached: each
+    scan returns the relation bound at that moment."""
 
     def __init__(self, name: str, schema: Schema):
-        raise NotImplementedError(
-            f"recursive CTE {name!r} (WITH RECURSIVE) is not ported to "
-            "datafusion_tpu_torch yet (ROADMAP queue 1, item 12 'Remaining "
-            "surface')")
+        self.name = name
+        self._schema = schema
+        self._rel: Optional[DeviceRelation] = None
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def host_table(self) -> Table:
+        raise PlanError(f"worktable {self.name!r} has no host data")
+
+    def scan_device(self, ctx, filters=(), projection=None) -> DeviceRelation:
+        if self._rel is None:
+            raise PlanError(
+                f"worktable {self.name!r} scanned outside its recursion")
+        return self._rel
 
 
 class MemTable(TableProvider):

@@ -14,9 +14,10 @@ by operator the first time a DataFrame is collected, then as a steady state
 (`execution.memory_limit_bytes`) streams a query whose scans would not fit
 in it chunk by chunk instead (`execution.out_of_core`, physical/chunked.py),
 as it does every query over a streaming table (`register_streaming_table`);
-`DataFrame.execute_stream` yields a query's answer chunk by chunk. The
-Substrait/protobuf interchange is not ported yet (ROADMAP queue 1, item 12
-'Remaining surface')."""
+`DataFrame.execute_stream` yields a query's answer chunk by chunk. Plans
+travel as Substrait (`to_substrait`/`from_substrait`) and as DataFusion's
+protobuf LogicalPlanNode (`to_proto`/`from_proto`); a decoded plan runs as
+one planned from SQL does."""
 from __future__ import annotations
 
 import threading
@@ -35,8 +36,6 @@ from .expr.udf import (AggregateUDF, FunctionRegistry, ScalarUDF, TableUDF,
 from .logical import plan as L
 from .physical.planner import create_physical_plan
 from .runtime.context import ExecContext, planning_device
-
-_SURFACE_ITEM = "ROADMAP queue 1, item 12 'Remaining surface'"
 
 
 class SessionContext:
@@ -188,11 +187,24 @@ class SessionContext:
         return DataFrame(self, L.TableScan(name, self.catalog.get(name)))
 
     def from_substrait(self, doc) -> "DataFrame":
-        raise NotImplementedError(f"Substrait plans are not ported yet ({_SURFACE_ITEM})")
+        """Bind a Substrait plan (proto3-JSON dict or JSON string) against
+        this session's catalog (reference analog:
+        substrait/src/logical_plan/consumer.rs)."""
+        import json as _json
+
+        from .interchange.substrait import plan_from_substrait
+
+        if isinstance(doc, (str, bytes)):
+            doc = _json.loads(doc)
+        return DataFrame(self, plan_from_substrait(doc, self.catalog))
 
     def from_proto(self, data: bytes) -> "DataFrame":
-        raise NotImplementedError(
-            f"DataFusion protobuf plans are not ported yet ({_SURFACE_ITEM})")
+        """Bind a DataFusion-protobuf-serialized LogicalPlanNode against
+        this session's catalog (reference analog:
+        proto/src/bytes/mod.rs logical_plan_from_bytes)."""
+        from .interchange.dfproto import plan_from_proto_bytes
+
+        return DataFrame(self, plan_from_proto_bytes(data, self.catalog))
 
     @with_registry
     def sql(self, query: str) -> "DataFrame":
@@ -704,11 +716,20 @@ class DataFrame:
         return self._plan
 
     def to_substrait(self) -> dict:
-        raise NotImplementedError(f"Substrait plans are not ported yet ({_SURFACE_ITEM})")
+        """Serialize this DataFrame's logical plan to a Substrait plan
+        (proto3-JSON dict; reference analog:
+        substrait/src/logical_plan/producer.rs)."""
+        from .interchange.substrait import plan_to_substrait
+
+        return plan_to_substrait(self._plan)
 
     def to_proto(self) -> bytes:
-        raise NotImplementedError(
-            f"DataFusion protobuf plans are not ported yet ({_SURFACE_ITEM})")
+        """Serialize this DataFrame's logical plan to DataFusion's protobuf
+        wire format (reference analog: proto/src/bytes/mod.rs
+        logical_plan_to_bytes)."""
+        from .interchange.dfproto import plan_to_proto_bytes
+
+        return plan_to_proto_bytes(self._plan)
 
     @with_registry
     def optimized_plan(self) -> L.LogicalPlan:

@@ -27,13 +27,15 @@ Two-phase adaptive execution, one FusedQuery per DataFrame:
      each call.
 A raised flag sends the query back to discovery (capacities only grow), and
 the next execute() builds the steady state anew. A plan holding an operator
-the walker does not know keeps per-operator execution. A plan that calls a
-host function (a scalar from register_async_udf or a plugin: the reference
-calls it from inside its program through jax.pure_callback, which a CUDA
-graph cannot hold) is marked before capture, and its steady state is the
-walker run eagerly on the card, as on the CPU. Any other failure while
-capturing (a host sync or a pageable copy in the steady state) raises: it is
-a bug, never turned into eager execution.
+the walker does not know keeps per-operator execution; a plan holding a
+recursive query (holds_recursion) is marked so before any leaf of a steady
+state runs. A plan that calls a host function (a scalar from
+register_async_udf or a plugin: the reference calls it from inside its
+program through jax.pure_callback, which a CUDA graph cannot hold) is
+marked before capture, and its steady state is the walker run eagerly on
+the card, as on the CPU. Any other failure while capturing (a host sync or
+a pageable copy in the steady state) raises: it is a bug, never turned into
+eager execution.
 
 What a replay does not run: Python side effects of the operators. Tracing
 spans and memory-pool accounting (`PhysicalPlan._timed`) are skipped by the
@@ -158,6 +160,8 @@ class FusedQuery:
             out = self.plan.execute(ctx)
             self._discovered = True
             return out
+        if self._fused is None and holds_recursion(self.plan):
+            self._fused = False  # decided before any leaf runs or capture starts
         if self._fused is False:
             return self.plan.execute(ctx)
         inputs = tuple(leaf.execute(ctx) for leaf in self.leaves)
@@ -215,6 +219,20 @@ class FusedQuery:
             return rel, flag
 
         return fn
+
+
+def holds_recursion(plan: P.PhysicalPlan) -> bool:
+    """Whether the plan holds a RecursiveQueryExec. Its work-table scan runs
+    only inside the recursion that binds it and its iteration count is read
+    on the host, so such a plan keeps per-operator execution, as the
+    reference's (whose fused build fails on the work-table scan)."""
+    stack = [plan]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, P.RecursiveQueryExec):
+            return True
+        stack.extend(p.children())
+    return False
 
 
 def calls_host(plan: P.PhysicalPlan) -> bool:

@@ -12,8 +12,8 @@ Ported: ScanExec, FilterExec, ProjectionExec, LimitExec, SortExec (with
 fetch = TopK, and the presorted elision), CompactExec, DistinctExec,
 AggregateExec's global, dense and sort-based paths (ops/groupby.py),
 JoinExec (every join type, residual filters; ops/joinimpl.py), UnionExec,
-ValuesExec, EmptyExec and UnnestExec. The window operators are in
-physical/window.py.
+ValuesExec, EmptyExec, UnnestExec and RecursiveQueryExec. The window
+operators are in physical/window.py.
 Aggregates the kernel cannot take (min/max, filtered or DISTINCT aggregates,
 float sums, order statistics, array_agg and string_agg) go through
 ops/groupby._reduce_one.
@@ -1194,6 +1194,54 @@ class UnnestExec(PhysicalPlan):
 
     def _line(self):
         return f"UnnestExec: {', '.join(e.name() for e in self.unnest_exprs)}"
+
+
+class RecursiveQueryExec(PhysicalPlan):
+    """Host-driven fixpoint loop for WITH RECURSIVE (reference:
+    RecursiveQueryExec, physical-plan/src/recursive_query.rs:66). The
+    iteration count is data-dependent, so the loop runs on the host: the
+    static arm first, then the recursive arm against the previous step's
+    rows (bound to the work table) until a step has no live row, one host
+    read of the live count per step. The steps are kept in a list and
+    concatenated once at the end; the reference concatenates its
+    accumulator every step, which gives the same rows in the same order."""
+
+    MAX_ITERATIONS = 100
+
+    def __init__(self, static_plan: PhysicalPlan, recursive_plan: PhysicalPlan,
+                 work_table, schema: Schema, name: str):
+        self.static_plan = static_plan
+        self.recursive_plan = recursive_plan
+        self.work_table = work_table
+        self.schema = schema
+        self.name = name
+        self.iterations: Optional[int] = None  # steps run by the last execute
+
+    def children(self):
+        return (self.static_plan, self.recursive_plan)
+
+    def execute(self, ctx: ExecContext) -> DeviceRelation:
+        work = self.static_plan.execute(ctx)
+        steps = [work]
+        try:
+            for i in range(self.MAX_ITERATIONS):
+                ctx.check_cancelled()
+                if int(work.sel.sum()) == 0:  # host read
+                    self.iterations = i
+                    if len(steps) == 1:
+                        return work
+                    return concat_relations(steps, self.schema)
+                self.work_table._rel = work
+                work = self.recursive_plan.execute(ctx)
+                steps.append(work)
+        finally:
+            self.work_table._rel = None
+        raise ExecutionError(
+            f"recursive CTE {self.name!r} exceeded "
+            f"{self.MAX_ITERATIONS} iterations")
+
+    def _line(self):
+        return f"RecursiveQueryExec: {self.name}"
 
 
 class _ConstantLeaf(PhysicalPlan):

@@ -5,9 +5,7 @@ executes: scans, filters (a rank filter over a window as a per-partition
 top-k), projections, aggregates, DISTINCT, sorts, limits, aliases, joins
 (cross joins and scalar subqueries as joins on a constant key, one
 inequality between the sides as a range join), UNION ALL, VALUES, empty
-relations, windows and UNNEST. A recursive query raises
-NotImplementedError naming the ROADMAP item that ports it, so it fails at
-planning time instead of returning a wrong answer."""
+relations, windows, UNNEST and recursive queries."""
 from __future__ import annotations
 
 from ..common.errors import PlanError
@@ -15,12 +13,6 @@ from ..data.device import DeviceRelation
 from ..expr import nodes as E
 from ..logical import plan as L
 from . import plan as P
-
-# logical node kind -> the ROADMAP item (queue 1) that ports its operator
-_NOT_PORTED = {
-    L.RecursiveQuery: "item 12 'Remaining surface'",
-}
-
 
 class AliasExec(P.PhysicalPlan):
     """Schema-renaming passthrough (SubqueryAlias)."""
@@ -122,11 +114,10 @@ def _create(plan: L.LogicalPlan, _memo) -> P.PhysicalPlan:
                           plan.schema)
     if isinstance(plan, L.Unnest):
         return P.UnnestExec(child(plan.input), plan.unnest_exprs, plan.schema)
-    for kind, item in _NOT_PORTED.items():
-        if isinstance(plan, kind):
-            raise NotImplementedError(
-                f"{type(plan).__name__} is not ported to datafusion_tpu_torch "
-                f"yet (ROADMAP queue 1, {item})")
+    if isinstance(plan, L.RecursiveQuery):
+        return P.RecursiveQueryExec(child(plan.static_plan),
+                                    child(plan.recursive_plan),
+                                    plan.work_table, plan.schema, plan.name)
     raise PlanError(f"no physical plan for {type(plan).__name__}")
 
 

@@ -6,6 +6,7 @@ builder serves both), TPC-H Q1 and Q6 built with the builders at SF 0.01
 equal to the SQL queries and to the JAX package, and EXPLAIN ANALYZE
 naming the same operators and output rows. Floats to rtol 1e-12, the rest
 exactly."""
+import json
 import math
 import re
 
@@ -181,15 +182,34 @@ def test_show_prints_like_jax(sessions, capsys):
 
 @pytest.mark.parametrize("method", ["to_substrait", "to_proto"])
 def test_interchange_still_names_its_item(sessions, method):
-    _, pctx = sessions
-    with pytest.raises(NotImplementedError, match="item 12"):
-        getattr(pctx.table("t"), method)()
+    """Named when the encoders raised NotImplementedError naming their
+    ROADMAP item; now ported: a DataFrame built with the methods encodes to
+    the JAX package's Substrait JSON or LogicalPlanNode bytes, and decodes
+    back to the JAX package's answer."""
+    jctx, pctx = sessions
+    sql = "SELECT s, sum(v) AS sv FROM e WHERE k < 3 GROUP BY s ORDER BY s"
+    got, want = getattr(pctx.sql(sql), method)(), getattr(jctx.sql(sql), method)()
+    assert json.dumps(got) == json.dumps(want) if method == "to_substrait" else got == want
+    decode = "from_substrait" if method == "to_substrait" else "from_proto"
+    assert getattr(pctx, decode)(got).to_pydict() == jctx.sql(sql).to_pydict()
 
 
 @pytest.mark.parametrize("method,arg", [("from_substrait", {}), ("from_proto", b"")])
-def test_interchange_entry_points_name_their_item(method, arg):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        getattr(PortSession(device="cpu"), method)(arg)
+def test_interchange_entry_points_name_their_item(sessions, method, arg):
+    """Named when the decoders raised NotImplementedError naming their
+    ROADMAP item; now ported: a plan the JAX package encoded decodes in the
+    port to the JAX package's answer, and an empty plan (`arg`) is refused
+    with the JAX package's error class."""
+    jctx, pctx = sessions
+    df = jctx.sql("SELECT k, count(*) AS n FROM e GROUP BY k ORDER BY k")
+    plan = df.to_substrait() if method == "from_substrait" else df.to_proto()
+    assert getattr(pctx, method)(plan).to_pydict() == df.to_pydict()
+    raised = []
+    for ctx in (pctx, jctx):
+        with pytest.raises(Exception) as info:
+            getattr(ctx, method)(arg).collect()
+        raised.append(type(info.value).__name__)
+    assert raised[0] == raised[1] == "PlanError"
 
 
 def test_explain_analyze_names_the_same_operators_and_rows_as_jax(sessions):

@@ -341,10 +341,19 @@ def test_pandas_frames_with_string_columns_register(nulls):
 
 
 def test_with_recursive_raises_not_implemented():
+    """Named when WITH RECURSIVE raised NotImplementedError naming its
+    ROADMAP item; now ported: three collect()s equal the JAX package's
+    answer, and the plan keeps per-operator execution (no steady state)."""
+    from datafusion_tpu.context import SessionContext as JaxSession
+
+    sql = ("WITH RECURSIVE r(n) AS (SELECT 1 UNION ALL SELECT n + 1 "
+           "FROM r WHERE n < 3) SELECT n FROM r")
     ctx = SessionContext(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ctx.sql("WITH RECURSIVE r(n) AS (SELECT 1 UNION ALL SELECT n + 1 "
-                "FROM r WHERE n < 3) SELECT n FROM r").collect()
+    df = ctx.sql(sql)
+    want = JaxSession().sql(sql).collect().to_pydict()
+    for _ in range(3):
+        assert df.collect().to_pydict() == want == {"n": [1, 2, 3]}
+    assert df._fused_query()._fused is False
 
 
 def test_values_with_arrow_cast_reaches_the_planner():
@@ -519,3 +528,37 @@ def test_udf_host_calls_run_eagerly_and_a_syncing_udf_is_refused():
             df.collect()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_decoded_q6_captures_without_a_host_sync():
+    """Q6 decoded from Substrait and from LogicalPlanNode bytes: its steady
+    state captured under set_sync_debug_mode("error") and replayed to the
+    SQL query's answer; a recursive query on the card keeps per-operator
+    execution."""
+    import json
+
+    from datafusion_tpu_torch.physical.fused import _Graph
+
+    ctx = SessionContext(device=_card())
+    for name, t in generate_tpch(0.01).items():
+        ctx.register_table(name, t)
+    sql_df = ctx.sql(query(6, 0.01))
+    want = sql_df.collect().to_pydict()
+    for back in (ctx.from_substrait(json.dumps(sql_df.to_substrait())),
+                 ctx.from_proto(sql_df.to_proto())):
+        assert back.collect().to_pydict() == want  # discovery
+        fq = back._fused_query()
+        inputs = tuple(leaf.execute(ctx.exec_context()) for leaf in fq.leaves)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph = _Graph(fq._steady_fn(), inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rel, overflow = graph.run()
+        assert not overflow and to_host(rel).to_pydict() == want
+    df = ctx.sql("WITH RECURSIVE r(n) AS (SELECT 1 UNION ALL SELECT n + 1 FROM r "
+                 "WHERE n < 3) SELECT n FROM r")
+    assert [df.collect().to_pydict() for _ in range(3)] == [{"n": [1, 2, 3]}] * 3
+    assert df._fused_query()._fused is False

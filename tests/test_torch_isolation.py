@@ -30,14 +30,23 @@ VERBATIM = [
     "testing/__init__.py", "testing/slt.py", "io/__init__.py",
     "io/object_store.py", "runtime/cache.py", "io/pageindex.py", "io/bloom.py",
     "io/parquet.py", "io/avro.py", "spark/javafmt.py", "interchange/ffi.py",
-    "native/plugin.h", "native/example_plugin.cpp",
+    "native/plugin.h", "native/example_plugin.cpp", "logical/serde.py",
+    "interchange/substrait.py", "interchange/dfproto.py", "testing/port_slt.py",
 ]
 # copied byte for byte, without a header
 VERBATIM_DATA = sorted(str(p.relative_to(ROOT / "datafusion_tpu"))
                        for p in (ROOT / "datafusion_tpu" / "models" / "tpcds"
                                  / "queries").glob("*.sql"))
 
-_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|datafusion_tpu)\b(?!_torch)", re.M)
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|datafusion_tpu\b(?!_torch)"
+                     r"|datafusion_pb2|datafusion_common_pb2)\b", re.M)
+# the generated protobuf bindings: byte for byte, but datafusion_pb2.py's
+# import of its sibling, which is package-relative in the port
+PROTO = ["interchange/proto/" + f for f in (
+    "datafusion.proto", "datafusion_common.proto", "regen.sh", "README.md",
+    "datafusion_common_pb2.py", "datafusion_pb2.py")]
+PROTO_IMPORT = ("import datafusion_common_pb2 as datafusion__common__pb2",
+                "from . import datafusion_common_pb2 as datafusion__common__pb2")
 
 
 def _modules():
@@ -82,6 +91,41 @@ def test_verbatim_data_files_equal_their_originals():
     assert copies == VERBATIM_DATA
     for path in VERBATIM_DATA:
         assert (PORT / path).read_bytes() == (ROOT / "datafusion_tpu" / path).read_bytes(), path
+
+
+@pytest.mark.parametrize("path", PROTO)
+def test_proto_copy_equals_original(path):
+    ours = (PORT / path).read_bytes().decode()
+    original = (ROOT / "datafusion_tpu" / path).read_bytes().decode()
+    if path.endswith("datafusion_pb2.py"):
+        assert ours.splitlines()[13] == PROTO_IMPORT[1]
+        assert original.splitlines()[13] == PROTO_IMPORT[0]
+        original = original.replace(PROTO_IMPORT[0], PROTO_IMPORT[1], 1)
+    assert ours == original
+
+
+def test_port_bindings_load_beside_the_reference_ones():
+    """Loaded after the JAX package's bindings (which put their directory on
+    sys.path and load as top-level modules), the port's are its own
+    modules, and no top-level binding module comes from the port."""
+    code = ("import sys\n"
+            "from datafusion_tpu.interchange.proto import plan_pb2 as J\n"
+            "from datafusion_tpu_torch.interchange.proto import plan_pb2, common_pb2\n"
+            "from datafusion_tpu_torch.interchange import dfproto\n"
+            "assert plan_pb2.__name__ == 'datafusion_tpu_torch.interchange.proto.datafusion_pb2'\n"
+            "assert common_pb2.__name__ == "
+            "'datafusion_tpu_torch.interchange.proto.datafusion_common_pb2'\n"
+            "assert dfproto.P is plan_pb2 and dfproto.C is common_pb2\n"
+            "assert plan_pb2.__file__.startswith(sys.argv[1])\n"
+            "for name in ('datafusion_pb2', 'datafusion_common_pb2'):\n"
+            "    top = sys.modules.get(name)\n"
+            "    assert top is None or 'datafusion_tpu_torch' not in top.__file__, top\n"
+            "p = plan_pb2.LogicalPlanNode(); p.empty_relation.produce_one_row = True\n"
+            "assert J.LogicalPlanNode.FromString(p.SerializeToString()) == "
+            "J.LogicalPlanNode.FromString(p.SerializeToString())\n")
+    out = subprocess.run([sys.executable, "-c", code, str(PORT)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_session_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -157,6 +201,30 @@ def test_udf_slice_modules_import_no_jax(module):
             f"importlib.import_module({module!r})\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'datafusion_tpu' or m.startswith('datafusion_tpu.'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+# the slice of recursive queries and plan interchange: its modules, each
+# imported alone in a fresh process, with no top-level protobuf binding
+INTERCHANGE_SLICE = ["datafusion_tpu_torch.interchange.substrait",
+                     "datafusion_tpu_torch.interchange.dfproto",
+                     "datafusion_tpu_torch.interchange.dfproto_physical",
+                     "datafusion_tpu_torch.interchange.proto",
+                     "datafusion_tpu_torch.logical.serde",
+                     "datafusion_tpu_torch.testing.port_slt",
+                     "datafusion_tpu_torch.testing.recursive_cases"]
+
+
+@pytest.mark.parametrize("module", INTERCHANGE_SLICE)
+def test_interchange_slice_modules_import_no_jax(module):
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'datafusion_tpu' or m.startswith('datafusion_tpu.')\n"
+            "             or m in ('datafusion_pb2', 'datafusion_common_pb2'))\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

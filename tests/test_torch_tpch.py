@@ -127,21 +127,16 @@ def test_more_queries_match_jax(sessions, sql, ordered):
 @pytest.mark.parametrize("sql", [
     "select date_trunc('month', l_shipdate) from lineitem",  # ported: item 9a
     "select unnest(make_array(l_orderkey, l_partkey)) from lineitem",  # ported: 9b
-    # a recursive CTE (ROADMAP item 12)
     "with recursive r(n) as (select 1 union all select n + 1 from r where n < 3) "
-    "select n from r",
+    "select n from r",  # ported: item 12
 ])
-def test_unported_queries_raise(sessions, sql):
-    """Each raises NotImplementedError naming its ROADMAP item, but for
-    date_trunc and unnest: the function library and the nested types are
-    ported, and they now equal the JAX package."""
-    if not sql.startswith("with recursive"):
-        jctx, pctx, _ = sessions
-        assert frames_diff(pctx.sql(sql).to_pandas(), jctx.sql(sql).to_pandas(),
-                           ordered=True) is None
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sessions[1].sql(sql).collect()
+def test_once_unported_queries_match_jax(sessions, sql):
+    """Each raised NotImplementedError naming its ROADMAP item until that
+    item was ported (the function library, the nested types, recursive
+    queries); each now equals the JAX package."""
+    jctx, pctx, _ = sessions
+    assert frames_diff(pctx.sql(sql).to_pandas(), jctx.sql(sql).to_pandas(),
+                       ordered=True) is None
 
 
 def test_explain_lists_the_port_plan(sessions):

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--sf 1] [--h2o-rows 10000000] [--tpcds-sf 24]
                           [--clickbench-rows 10000000] [--repeat 3]
                           [--rec-nodes 1048576] [--seed 0]
-                          [--only outofcore|udf|interchange]
+                          [--only outofcore|udf|interchange|distributed]
 
 Run from the repository root on a machine with one CUDA card and nvcc. In
 order, it:
@@ -110,6 +110,27 @@ order, it:
      oracle, per-operator execution, the iteration count, host syncs per
      iteration, the collect() median, one profile and the peak bytes; a
      runaway recursion must stop at the cap of 100 iterations;
+ 8d. the distributed engine (run_distributed) on a mesh of 8 shards of the
+     card (parallel/distributed.make_mesh(8, devices=[cuda:0] * 8)), over
+     the TPC-H tables already on the card: dryrun_multichip(8) (Q3 through
+     broadcast joins, a customer JOIN orders aggregate through partitioned
+     ones, each equal to the single-device answer); all 22 queries through
+     DistributedQuery with the default options, then Q3, Q5, Q10, Q18 and
+     Q21 with every join partitioned, each answer (first and warm walk)
+     equal to the oracle, printing each join's mode, the exchanges and the
+     largest capacity they made, the slot factor, the host syncs of one
+     execute(), the warm execute() + host copy (median of --repeat, up to
+     3) in turns with the single-device eager collect(), and the peak
+     bytes allocated; the kernel's launches in a warm walk, each call held
+     against its plain version bit for bit and timed as in 5 at a new
+     shape; fails unless Q1 launches it once per shard; a table whose
+     group key is one value in 90% of its 2^22 rows must overflow the
+     exchange, grow the slot factor and equal the single-device answer;
+     approx_distinct(l_partkey) per l_returnflag with
+     execution.approx_distinct_hll on must be within 5% of the exact count
+     and equal on meshes of 1, 2 and 8 shards (and exact without it);
+     one profile each of Q1 and Q3, printed through utils/xplane.top_ops
+     with the share of device time in copies;
   9. takes the h2o.ai groupby table G1_1e7_1e2_0_0 (--h2o-rows rows,
      K = 100, seed 42; it and the hits table of 12 are generated in two
      worker processes started with the run, beside phases 1-8) and runs
@@ -204,7 +225,8 @@ a {"only": ...} line instead of 15: a quicker run for work on that phase.
 With `--only udf` it runs 2, TPC-H Q1 and Q6 at --sf as in 4 (the main
 path whose kernel calls U1 and U2 must repeat), then 8b alone; with `--only
 interchange`, 2, Q1 and Q6 as in 4 and the oracle's answers to the 22
-queries, then 8c alone.
+queries, then 8c alone; with `--only distributed`, 2, the oracle's
+answers to the 22 queries, then 8d alone.
 """
 from __future__ import annotations
 
@@ -254,6 +276,9 @@ from datafusion_tpu_torch.expr import udf as U
 from datafusion_tpu_torch.physical import functions as F
 from datafusion_tpu_torch.physical import fused as FQ
 from datafusion_tpu_torch.physical import plan as P
+from datafusion_tpu_torch.parallel.distributed import make_mesh
+from datafusion_tpu_torch.parallel.engine import DistributedQuery, dryrun_multichip
+from datafusion_tpu_torch.utils import xplane
 from datafusion_tpu_torch.spark.functions import _xxhash64
 from datafusion_tpu_torch.testing.edge_cases import (CASES, ERRORS, FAMILIES,
                                                      edge_table, edge_types)
@@ -2707,6 +2732,247 @@ def run_interchange(ctx, refs: dict, main_path: dict, sf: float, args, timing) -
 
 
 # ---------------------------------------------------------------------------
+# 8d. the distributed engine over a mesh of shards on the card
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 8  # the mesh size of the reference's tests
+DIST_REPEAT = 3
+DIST_PARTITIONED = (3, 5, 10, 18, 21)  # the reference's partitioned-join list
+DIST_SKEW_ROWS = 1 << 22
+DIST_HLL_SQL = ("SELECT l_returnflag, approx_distinct(l_partkey) ad FROM lineitem "
+                "GROUP BY l_returnflag")
+DIST_HLL_TOL = 0.05
+DIST_PROFILED = (1, 3)
+
+
+def dist_mesh(n: int = DIST_SHARDS):
+    return make_mesh(n, devices=[torch.device("cuda", 0)] * n)
+
+
+def dist_answer(dq, ctx):
+    """One DistributedQuery.execute() and the host copy of its result."""
+    return to_host(dq.execute(ctx.exec_context()))
+
+
+def dist_query(ctx, label: str, sql: str, ref, ordered: bool, mesh, options,
+               repeat: int, timing=None) -> dict:
+    """One query through DistributedQuery: discovery and the first walk,
+    then warm walks, each answer against the oracle; the warm execute() +
+    host copy (median of `repeat`) timed in turns with the single-device
+    eager collect(), the host syncs of one execute(), the peak bytes
+    allocated in one, and the kernel's launches in one, each call held
+    against its plain version bit for bit (and, with `timing`, timed at a
+    shape not seen before)."""
+    df = ctx.sql(sql)
+    dq = DistributedQuery(df.physical_plan(), mesh, options=options)
+    t0 = time.perf_counter()
+    got = dist_answer(dq, ctx)
+    first_s = time.perf_counter() - t0
+    diff = frames_diff(got.to_pandas(), ref, ordered=ordered)
+    check(diff is None, f"distributed {label} differs from the oracle: {diff}")
+    DA.reset_launches()
+    with RecordKernelInputs() as rec:
+        got = dist_answer(dq, ctx)
+    launches = DA.launches
+    check(launches == len(rec.calls),
+          f"distributed {label}: {len(rec.calls)} calls but {launches} launches")
+    diff = frames_diff(got.to_pandas(), ref, ordered=ordered)
+    check(diff is None, f"distributed {label} (warm) differs from the oracle: {diff}")
+    for seg, mask, pairs, G in rec.calls:
+        a = DA.dense_groupby_sums(seg, mask, pairs, G)
+        b = DA.dense_groupby_sums_plain(seg, mask, pairs, G)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"distributed {label}: the kernel differs from its plain version (G={G})")
+    if timing is not None and rec.calls:
+        shapes, iters, flush, baseline, seen = timing
+        seg, mask, pairs, G = rec.calls[0]
+        shape = (int(seg.shape[0]), G, len(pairs))
+        if shape not in seen:
+            seen.add(shape)
+            t = kernel_timing(rec.calls[0], iters, flush, baseline)
+            t["launches_per_query"] = launches
+            shapes[f"dist_{label}_shard"] = t
+            emit({"kernel_timing": KERNEL["name"], "shape": f"dist_{label}_shard", **t})
+    turns = {"distributed": [], "single_device_eager": []}
+    for i in range(2 * repeat):
+        name = ("distributed", "single_device_eager")[(i + i // 2) % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "distributed":
+            dist_answer(dq, ctx)
+        else:
+            eager_collect(ctx, df)
+        turns[name].append((time.perf_counter() - t0) * 1e3)
+    syncs = host_syncs(lambda: dist_answer(dq, ctx))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dist_answer(dq, ctx)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"dist_query": label, "rows": got.num_rows, "matches_oracle": True,
+            "join_modes": dq.join_modes(), "out_dist": dq.out_dist,
+            "slot_factor": dq.slot_factor, **dq.trace_stats,
+            "first_s": first_s, "kernel_launches": launches,
+            "kernel_calls": [{"n": int(s.shape[0]), "G": G,
+                              "route": DA.kernel_route(G, len(DA.distinct_pairs(p)[0]))}
+                             for s, _, p, G in rec.calls],
+            "host_syncs_per_execute": syncs,
+            "execute_ms_median": statistics.median(turns["distributed"]),
+            "single_device_eager_collect_ms_median":
+                statistics.median(turns["single_device_eager"]),
+            "ms_in_turns": turns,
+            "peak_allocated_bytes": peak, "allocated_before_bytes": base}
+
+
+def dist_skew(repeat: int) -> dict:
+    """A table whose group key is one value in 90% of its rows: the row
+    exchange of count(DISTINCT) must overflow its even-split slots, the
+    slot factor grow, and the answer equal the single-device one."""
+    rng = np.random.default_rng(0)
+    n = DIST_SKEW_ROWS
+    k = np.where(rng.random(n) < 0.9, 0, rng.integers(1, 1000, n)).astype(np.int64)
+    v = rng.integers(0, 5000, n).astype(np.int64)
+    ctx = SessionContext()
+    ctx.register_table("skew", Table.from_pydict({"k": k, "v": v}))
+    sql = "SELECT k, count(DISTINCT v) c, sum(v) s FROM skew GROUP BY k"
+    df = ctx.sql(sql)
+    ref = df.to_pandas()
+    dq = DistributedQuery(df.physical_plan(), dist_mesh())
+    t0 = time.perf_counter()
+    got = dist_answer(dq, ctx).to_pandas()
+    secs = time.perf_counter() - t0
+    diff = frames_diff(got, ref, ordered=False)
+    check(diff is None, f"distributed skew differs from the single device: {diff}")
+    check(dq.slot_factor > 2, f"skew: the slot factor stayed at {dq.slot_factor}")
+    walls = []
+    for _ in range(repeat):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist_answer(dq, ctx)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"dist_skew": n, "hot_share": 0.9, "groups": len(got),
+            "slot_factor": dq.slot_factor, **dq.trace_stats,
+            "first_s_with_ladder": secs, "execute_ms_median": statistics.median(walls),
+            "matches_single_device": True}
+
+
+def dist_hll(ctx) -> dict:
+    """approx_distinct(l_partkey) per l_returnflag with the HLL sketch on,
+    over meshes of 1, 2 and 8 shards: every estimate within DIST_HLL_TOL of
+    the exact count, and equal across the meshes; without the option the
+    distributed answer is the exact count."""
+    exact = DistributedQuery(ctx.sql(DIST_HLL_SQL).physical_plan(), dist_mesh())
+    truth = dist_answer(exact, ctx).to_pandas().set_index("l_returnflag")["ad"]
+    single = ctx.sql(DIST_HLL_SQL).to_pandas().set_index("l_returnflag")["ad"]
+    check(truth.sort_index().equals(single.sort_index()),
+          f"approx_distinct without the sketch: {truth.to_dict()} != {single.to_dict()}")
+    ests = {}
+    for n in (1, 2, DIST_SHARDS):
+        dq = DistributedQuery(ctx.sql(DIST_HLL_SQL).physical_plan(), dist_mesh(n),
+                              options={"execution.approx_distinct_hll": True})
+        ests[n] = dist_answer(dq, ctx).to_pandas().set_index("l_returnflag")["ad"] \
+            .sort_index()
+    err = ((ests[DIST_SHARDS] - truth.sort_index()).abs() / truth.sort_index()).max()
+    check(err <= DIST_HLL_TOL, f"HLL estimates {ests[DIST_SHARDS].to_dict()} are "
+                               f"{err:.4f} from the exact {truth.to_dict()}")
+    check(all(ests[n].equals(ests[DIST_SHARDS]) for n in ests),
+          f"HLL estimates differ between meshes: { {n: e.to_dict() for n, e in ests.items()} }")
+    return {"dist_hll": DIST_HLL_SQL, "exact": truth.to_dict(),
+            "estimates": ests[DIST_SHARDS].to_dict(), "max_rel_err": float(err),
+            "meshes": list(ests)}
+
+
+def dist_profile(ctx, qid: int, sf: float) -> dict:
+    """One profiled warm execute() of distributed `qid`: its top ops by
+    device time through utils/xplane, and the share of copies."""
+    from torch.profiler import ProfilerActivity
+
+    dq = DistributedQuery(ctx.sql(query(qid, sf)).physical_plan(), dist_mesh())
+    step = lambda: dist_answer(dq, ctx)  # noqa: E731
+    step()
+    for attempt in range(1, 7):  # a profile can lose every device event
+        if attempt > 1:
+            time.sleep(0.2)
+        prof = profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA], step, step)
+        times = xplane.plane_op_times(prof)
+        if times:
+            break
+    check(bool(times), f"distributed Q{qid} profile: no device events in 6 attempts")
+    print(xplane.top_ops(prof, n=12), flush=True)
+    total = sum(ms for ms, _ in times.values())
+    return {"dist_profile": f"q{qid}", "attempts": attempt, "device_ms": total,
+            "copy_ms": xplane.copy_ms(times),
+            "copy_share": xplane.copy_ms(times) / total,
+            "device_ops": sum(c for _, c in times.values()),
+            "dgs_launches": sum(c for k, (_, c) in times.items() if "dgs_" in k)}
+
+
+def run_distributed(ctx, refs: dict, sf: float, args, timing) -> int:
+    """The distributed phase over the TPC-H session already on the card:
+    dryrun_multichip on 8 shards of the card, the 22 queries through
+    DistributedQuery (and the partitioned-join five again), the skew
+    ladder, the HLL sketch, two profiles. Returns the kernel's launches in
+    the queries' timed walks."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dryrun_multichip(DIST_SHARDS, devices=[torch.device("cuda", 0)] * DIST_SHARDS)
+    emit({"dryrun_multichip": DIST_SHARDS, "s": time.perf_counter() - t0})
+    mesh = dist_mesh()
+    repeat = min(args.repeat, DIST_REPEAT)
+    launches = 0
+    for qid in range(1, 23):
+        row = dist_query(ctx, f"q{qid}", query(qid, sf), refs[qid],
+                         qid in LIMIT_QUERIES, mesh, {}, repeat, timing)
+        launches += row["kernel_launches"]
+        if qid == 1:
+            check(row["kernel_launches"] == DIST_SHARDS,
+                  f"distributed Q1 launched dense_groupby_sums "
+                  f"{row['kernel_launches']} times, not once per shard")
+        emit(row)
+    for qid in DIST_PARTITIONED:
+        row = dist_query(ctx, f"q{qid}_partitioned", query(qid, sf), refs[qid],
+                         qid in LIMIT_QUERIES, mesh, {"join_mode": "partitioned"}, 1)
+        check(set(row["join_modes"]) == {"partitioned"},
+              f"Q{qid} partitioned: join modes {row['join_modes']}")
+        launches += row["kernel_launches"]
+        emit(row)
+    emit(dist_skew(repeat))
+    emit(dist_hll(ctx))
+    for qid in DIST_PROFILED:
+        emit(dist_profile(ctx, qid, sf))
+    emit({"phase": "distributed", "shards": DIST_SHARDS, "launches": launches,
+          "s": time.perf_counter() - t_phase,
+          "memory_reserved": torch.cuda.memory_reserved()})
+    return launches
+
+
+def run_distributed_only(args) -> int:
+    """`--only distributed`: the kernels built, TPC-H at --sf in a session
+    on the card, the oracle's answers to the 22 queries, then
+    run_distributed."""
+    t0 = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    cuda_build.build_all([DA.SOURCE, BASELINE])
+    baseline = baseline_call(cuda_build.load(BASELINE))
+    tables = generate_tpch(args.sf, cache=False)
+    ctx = SessionContext()
+    for name, table in tables.items():
+        ctx.register_table(name, table)
+    frames = oracle_tables(tables)
+    refs = {q: ref_query(q, frames, args.sf) for q in range(1, 23)}
+    emit({"setup_s": time.perf_counter() - t0})
+    launches = run_distributed(ctx, refs, args.sf, args,
+                               ({}, args.iters, L2Flush(torch.device("cuda")),
+                                baseline, set()))
+    print(card_line(), flush=True)
+    emit({"only": "distributed", "launches": launches,
+          "total_s": time.perf_counter() - t0})
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # 13. file tables and the session's statements
 # ---------------------------------------------------------------------------
 
@@ -3526,7 +3792,7 @@ def main() -> int:
                     help="nodes of the hierarchy the recursive queries walk")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the hierarchy the recursive queries walk")
-    ap.add_argument("--only", choices=("outofcore", "udf", "interchange"),
+    ap.add_argument("--only", choices=("outofcore", "udf", "interchange", "distributed"),
                     help="run the kernels' build and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3539,6 +3805,8 @@ def main() -> int:
         return run_udf_only(args)
     if args.only == "interchange":
         return run_interchange_only(args)
+    if args.only == "distributed":
+        return run_distributed_only(args)
     # the h2o and ClickBench tables take minutes of host time to generate:
     # two worker processes make them while the earlier phases run
     workers = multiprocessing.get_context("spawn").Pool(2)
@@ -3642,6 +3910,9 @@ def run(args, generated: dict) -> int:
     launches += run_interchange(ctx, refs, main_path, args.sf, args,
                                 (shapes, args.iters, flush, baseline, seen))
     emit({"elapsed_s": time.perf_counter() - t_run, "after": "interchange"})
+    launches += run_distributed(ctx, refs, args.sf, args,
+                                (shapes, args.iters, flush, baseline, seen))
+    emit({"elapsed_s": time.perf_counter() - t_run, "after": "distributed"})
 
     check_segment_extremes(dev)
     t0 = time.perf_counter()

@@ -14,7 +14,8 @@ ops:
   (build side sorted by id, probes located with `torch.searchsorted`) and
   `join_expand` (output slot -> (probe row, build row));
 * `hash64` -- a 64-bit hash per row over several columns (the grace join's
-  partitioning, physical/chunked.py);
+  partitioning, physical/chunked.py), and `hash_mod`, the unsigned
+  remainder that routes a row to a shard (parallel/);
 * `segmented_scan` -- an inclusive scan of any associative combine that
   restarts at flagged rows (torch has no associative_scan): bitwise
   aggregates, window min/max, aggregate and window UDFs.
@@ -83,6 +84,13 @@ def hash64(columns: Sequence[torch.Tensor], seed: int = 0) -> torch.Tensor:
             bits = c.to(torch.int64)
         acc = _mix64(acc ^ _mix64(bits))
     return acc
+
+
+def hash_mod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """The reference's `uint64 hash % n` of hash64's int64 bit patterns: the
+    unsigned remainder (a negative pattern stands for itself plus 2**64)."""
+    r = torch.remainder(h, n)
+    return torch.where(h < 0, torch.remainder(r + (2 ** 64) % n, n), r)
 
 
 def _sortable(x: torch.Tensor) -> torch.Tensor:

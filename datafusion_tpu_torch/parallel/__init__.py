@@ -1,3 +1,3 @@
-"""Partial/Final aggregation states (aggsplit.py). The distributed engine
-of the reference (mesh exchanges, the cross-device merges) is not ported
-yet: ROADMAP queue 1, item 11."""
+"""Partial/Final aggregation states (aggsplit.py) and distributed execution
+over a mesh of shards (distributed.py: the mesh and its collectives;
+engine.py: DistributedQuery)."""

@@ -69,7 +69,6 @@ from ..data.device import (DeviceColumn, DeviceRelation, bucket_capacity,
 from ..data.table import Table
 from ..expr import nodes as E
 from ..logical.plan import JoinType
-from ..ops import dense_agg as DA
 from ..ops import groupby as G
 from ..ops import kernels as K
 from ..parallel import aggsplit as AS
@@ -1008,33 +1007,6 @@ class ChunkedQuery:
             return
         yield self._agg_sorted(p, ctx, chunks)
 
-    @staticmethod
-    def _kernel_slots(p: P.AggregateExec, rel, specs, arg_cols, sp):
-        """(state index -> ("count", None) | ("sum", pair index), factor
-        pairs): the states the dense aggregation kernel computes, chosen as
-        the resident dense aggregate chooses its kernel aggregates
-        (AggregateExec._dense_transform): unfiltered, non-DISTINCT counts
-        over non-NULL arguments, and sums and averages whose argument
-        factors into int32-bounded columns. A sum's or average's count state
-        is the group count then (its argument has no NULLs)."""
-        slots, pairs = {}, []
-        for spec, afn, fin in zip(specs, p._agg_fns(), sp.finals):
-            if spec.filter is not None or spec.distinct:
-                continue
-            if spec.fname in ("count", "count_star"):
-                if spec.arg is None or arg_cols[spec.arg].validity is None:
-                    slots[fin.slots[0]] = ("count", None)
-                continue
-            if spec.fname in ("sum", "avg") and afn.args:
-                fac = p._i32_factors(afn.args[0], rel)
-                if fac is not None:
-                    slots[fin.slots[0]] = ("sum", len(pairs))
-                    slots[fin.slots[1]] = ("count", None)
-                    pairs.append((p._kernel_factor(fac[0]),
-                                  None if fac[1] is None
-                                  else p._kernel_factor(fac[1])))
-        return slots, pairs
-
     def _dense_partial(self, p: P.AggregateExec, sizes, ngroups: int, rel):
         """One chunk's partial states at the dense group slots: (states,
         group counts, group key columns and state plan as metadata over no
@@ -1042,33 +1014,9 @@ class ChunkedQuery:
         group_cols, arg_cols, filter_cols, specs = p._prepare(rel)
         sp = AS.build_state_plan(specs, arg_cols)
         seg, _ = p.dense_seg(group_cols, rel.sel, list(sizes), ngroups)
-        slots, pairs = {}, []
-        if sizes or p._global_dense_ok(rel):
-            slots, pairs = self._kernel_slots(p, rel, specs, arg_cols, sp)
-        if slots:
-            # at most MAX_PAIRS pairs a launch, as in the resident path
-            groups = [pairs[i:i + DA.MAX_PAIRS]
-                      for i in range(0, len(pairs), DA.MAX_PAIRS)] or [[]]
-            parts = [DA.dense_groupby_sums(seg, rel.sel, g, ngroups) for g in groups]
-            group_count = parts[0][1]
-            sums = parts[0][0] if len(parts) == 1 else torch.cat([q[0] for q in parts], 1)
-        else:
-            group_count = K.segment_count(seg, rel.sel, ngroups)
-        is_start = torch.zeros(rel.capacity, dtype=torch.bool, device=rel.device)
-        ones = torch.ones(ngroups, dtype=torch.bool, device=rel.device)
-        states = []
-        for si, sspec in enumerate(sp.state_specs):
-            hit = slots.get(si)
-            if hit is None:
-                states.append(G._reduce_one(
-                    sspec, sp.state_args, filter_cols, rel.sel, seg, is_start,
-                    None, ngroups, group_count, ones))
-            elif hit[0] == "count":
-                states.append(DeviceColumn(group_count, None, T.INT64))
-            else:
-                # the exact int64 sum; a float state (an integer average)
-                # stays exact too until finalize divides it
-                states.append(DeviceColumn(sums[:, hit[1]], None, sspec.out_dtype))
+        states, group_count = AS.dense_states(
+            p, rel, specs, p._agg_fns(), arg_cols, filter_cols, sp, seg, ngroups,
+            kernel=bool(sizes) or p._global_dense_ok(rel))
         return (states, group_count, [_metadata_only(c) for c in group_cols],
                 dataclasses.replace(sp, state_args=[]))
 

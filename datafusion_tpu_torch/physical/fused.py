@@ -427,11 +427,17 @@ def _trace_inner(p: P.PhysicalPlan, inputs, leaf_index, tctx) -> DeviceRelation:
 
 
 def apply_aggregate(p: P.AggregateExec, rel: DeviceRelation,
-                    tctx: _TraceCtx) -> DeviceRelation:
+                    tctx: Optional[_TraceCtx] = None,
+                    cached: bool = True) -> DeviceRelation:
     """p's aggregation over an already-walked input with the capacity and
     list width discovery recorded; a sorted aggregate flags more groups than
     that, and array_agg / string_agg a list longer than the width (the live
-    count for the global case, the largest group for the grouped one)."""
+    count for the global case, the largest group for the grouped one). The
+    distributed engine passes no `tctx` where its input cannot pass the
+    discovered sizes (its flags are dropped), and cached=False: its dense
+    domains come from the relation at hand (AggregateExec._dense_sizes)."""
+    if tctx is None:
+        tctx = _TraceCtx()
     width = getattr(p, "_last_width", None) if p._has_array_agg() else 0
     if width is None:
         raise ExecutionError("list width not discovered")
@@ -441,7 +447,7 @@ def apply_aggregate(p: P.AggregateExec, rel: DeviceRelation,
         if p._global_dense_ok(rel):
             return p._dense_transform(rel, [], 1, True)
         return p._global(rel)
-    dense = p._dense_sizes(rel)
+    dense = p._dense_sizes(rel, cached)
     if dense is not None:
         return p._dense_transform(rel, *dense)
     cap = getattr(p, "_last_cap", None)
@@ -469,9 +475,14 @@ def join_normalize(p: P.JoinExec):
 
 
 def apply_join(p: P.JoinExec, lrel: DeviceRelation, rrel: DeviceRelation,
-               tctx: _TraceCtx) -> DeviceRelation:
+               tctx: Optional[_TraceCtx] = None,
+               co_cap: Optional[int] = None) -> DeviceRelation:
     """p's join over already-walked (probe, build) relations, in normalized
     order (join_normalize), on the path and expansion capacity discovery
     recorded; flags a duplicate build key under a direct join and more
-    matches than the capacity."""
-    return p.execute_rels(lrel, rrel, flags=tctx.flags)
+    matches than the capacity. `co_cap` bounds that capacity (the
+    distributed engine's per-shard joins); without `tctx` the flags are
+    dropped (a broadcast join's shard probes a subset of the rows discovery
+    did, as in the reference)."""
+    flags = tctx.flags if tctx is not None else []
+    return p.execute_rels(lrel, rrel, flags=flags, co_cap=co_cap)

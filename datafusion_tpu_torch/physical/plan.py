@@ -508,14 +508,22 @@ class AggregateExec(PhysicalPlan):
         return DeviceColumn(data, c.validity, f.dtype, c.dictionary,
                             c.bounds, c.lengths, c.elem_valid, c.meta)
 
-    def _dense_sizes(self, rel: DeviceRelation):
+    def _dense_sizes(self, rel: DeviceRelation, cached: bool = True):
         """(per-key domain sizes, their product) when every group key has a
         small static domain, else None. Cached on the node: the keys'
-        dictionaries and bounds are static metadata of the plan's inputs."""
-        cached = getattr(self, "_dense", False)
-        if cached is not False:
-            return cached
-        self._dense = None
+        dictionaries and bounds are static metadata of the plan's inputs.
+        With cached=False it is computed from `rel` and not kept: the
+        distributed engine's exchanged relations carry bounds widened to
+        take 0 (parallel/distributed.columns_like)."""
+        if not cached:
+            return self._dense_domain(rel)
+        hit = getattr(self, "_dense", False)
+        if hit is not False:
+            return hit
+        self._dense = self._dense_domain(rel)
+        return self._dense
+
+    def _dense_domain(self, rel: DeviceRelation):
         if not self._dense_eligible():
             return None
         sizes = []
@@ -538,8 +546,8 @@ class AggregateExec(PhysicalPlan):
         for s in sizes:
             total *= s
         if sizes and total <= self.DENSE_LIMIT:
-            self._dense = (sizes, total)
-        return self._dense
+            return sizes, total
+        return None
 
     def _i32_factors(self, e_arg, rel):
         """Express an aggregate argument as a product of <=2 columns whose
@@ -772,6 +780,18 @@ class DistinctExec(PhysicalPlan):
         return self._timed(ctx, self._transform, self.input.execute(ctx))
 
 
+def unified_keys(on, lrel: DeviceRelation, rrel: DeviceRelation):
+    """The join key columns of both sides, (probe keys, build keys), each
+    string key pair on one dictionary: equal strings get equal codes, so
+    they join, and hash to one shard when both sides are exchanged."""
+    lkeys = [eval_expr(l, lrel) for l, _ in on]
+    rkeys = [eval_expr(r, rrel) for _, r in on]
+    for i in range(len(lkeys)):
+        if lkeys[i].dtype.is_string or rkeys[i].dtype.is_string:
+            lkeys[i], rkeys[i] = unify_string_columns(lkeys[i], rkeys[i])
+    return lkeys, rkeys
+
+
 class JoinExec(PhysicalPlan):
     """Equi-join (+ residual filter) for every join type; see
     ops/joinimpl.py. RIGHT flavours run as the mirrored LEFT ones (probe =
@@ -831,7 +851,8 @@ class JoinExec(PhysicalPlan):
 
     def execute_rels(self, lrel: DeviceRelation, rrel: DeviceRelation,
                      flags: Optional[list] = None,
-                     direct_bytes: Optional[int] = None) -> DeviceRelation:
+                     direct_bytes: Optional[int] = None,
+                     co_cap: Optional[int] = None) -> DeviceRelation:
         """Run the join over (probe, build) relations, probe = left after
         RIGHT-flavour mirroring. With `flags` (a steady state,
         physical/fused.py) no host read is made: the path and capacity
@@ -841,7 +862,14 @@ class JoinExec(PhysicalPlan):
         domain sizes it, not the inputs: a bool a slot for semi-direct, 20
         bytes for minmax, 8 for direct); a path whose table would pass it
         is not taken. The chunked executor, which bounds what sits on the
-        card by its budget, passes one."""
+        card by its budget, passes one. `co_cap` (with `flags`) bounds the
+        expansion capacity below the discovered one: the distributed engine's
+        per-shard outputs are about n times smaller, and the flag guards
+        the bound. Each run outside a steady state records the (probe,
+        build) capacities in `_last_input_caps`, which the distributed
+        engine's CollectLeft-or-Partitioned choice reads."""
+        if flags is None:
+            self._last_input_caps = (lrel.capacity, rrel.capacity)
         jt = self.join_type
         swapped = self._swapped()
         if swapped:
@@ -854,7 +882,7 @@ class JoinExec(PhysicalPlan):
             rng = (rng[1], rng[0], self._RANGE_MIRROR[rng[2]])
         keys = info = None
         if rng is None:
-            keys = self._keys(on, lrel, rrel)
+            keys = unified_keys(on, lrel, rrel)
             if on:
                 info = J.direct_domain(keys[0], keys[1], self.DIRECT_DOMAIN_LIMIT)
 
@@ -872,17 +900,8 @@ class JoinExec(PhysicalPlan):
             mm = self._residual_minmax(lrel, rrel)
             if mm is not None:
                 return self._run_semi(lrel, rrel, keys, rng, within(20), mm)
-        return self._run_expand(lrel, rrel, jt, swapped, keys, rng, within(8), flags)
-
-    @staticmethod
-    def _keys(on, lrel, rrel):
-        """Join key columns of both sides, string keys on one dictionary."""
-        lkeys = [eval_expr(l, lrel) for l, _ in on]
-        rkeys = [eval_expr(r, rrel) for _, r in on]
-        for i in range(len(lkeys)):
-            if lkeys[i].dtype.is_string or rkeys[i].dtype.is_string:
-                lkeys[i], rkeys[i] = unify_string_columns(lkeys[i], rkeys[i])
-        return lkeys, rkeys
+        return self._run_expand(lrel, rrel, jt, swapped, keys, rng, within(8), flags,
+                                co_cap)
 
     def _residual_minmax(self, lrel, rrel):
         """(probe_col_expr, build_col_expr, op) when the residual filter is
@@ -947,7 +966,8 @@ class JoinExec(PhysicalPlan):
         return DeviceRelation(self.schema, lrel.columns,
                               lrel.sel & (~ex if anti else ex))
 
-    def _run_expand(self, lrel, rrel, jt, swapped, keys, rng, info, flags=None):
+    def _run_expand(self, lrel, rrel, jt, swapped, keys, rng, info, flags=None,
+                    co_cap=None):
         tried = None
         if jt in (JoinType.INNER, JoinType.LEFT) and info is not None \
                 and self._direct_ok.get(info) is not False:
@@ -969,6 +989,8 @@ class JoinExec(PhysicalPlan):
             co = self._last_co
             if not co:
                 raise ExecutionError("join capacity not discovered")
+            if co_cap is not None:
+                co = min(co, co_cap)
             flags.append(total > co)
         else:
             co = max(bucket_capacity(max(int(total), 1)), self._last_co)  # host read

@@ -229,3 +229,24 @@ def test_interchange_slice_modules_import_no_jax(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# the distributed slice and the profile reader: their modules, each imported
+# alone in a fresh process
+DISTRIBUTED_SLICE = ["datafusion_tpu_torch.parallel.distributed",
+                     "datafusion_tpu_torch.parallel.engine",
+                     "datafusion_tpu_torch.parallel.aggsplit",
+                     "datafusion_tpu_torch.ops.hll",
+                     "datafusion_tpu_torch.utils.xplane"]
+
+
+@pytest.mark.parametrize("module", DISTRIBUTED_SLICE)
+def test_distributed_slice_modules_import_no_jax(module):
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'datafusion_tpu' or m.startswith('datafusion_tpu.'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
